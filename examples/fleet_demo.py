@@ -5,7 +5,16 @@ three workspaces placed least-loaded, one live-migrated between hosts.
 
 Every worker is a real ``python -m mixlab_tpu`` server process; migration
 moves the project file AND the engine's runtime DSP checkpoint, so the
-target resumes from the same tick."""
+target resumes from the same tick.
+
+Each worker on a GPU host takes a card of its own (a JAX process reserves
+most of a card's memory), and the two agents here split this machine's
+cards between them.  The demo needs four workers at once (three placed,
+one migration target), so on a machine with fewer cards, such as one H100,
+run the workers on the CPU:
+
+    JAX_PLATFORMS=cpu python examples/fleet_demo.py
+"""
 
 from __future__ import annotations
 
@@ -22,14 +31,20 @@ from pathlib import Path
 
 
 async def main():
-    from mixlab_tpu.server.fleet import FleetController, HostAgent, http_call
+    from mixlab_tpu.server.fleet import (FleetController, HostAgent,
+                                         host_cards, http_call)
 
+    cards = host_cards()
+    if cards is not None and len(cards) < 4:
+        raise SystemExit(f"{len(cards)} card(s) here, the demo needs 4 "
+                         "workers: run it with JAX_PLATFORMS=cpu")
     data = Path(tempfile.mkdtemp(prefix="fleet-demo-"))
     ctl = FleetController()
     await ctl.serve()
     agents = []
-    for host_id in ("host-a", "host-b"):
-        agent = HostAgent(host_id, data / host_id, respawn_interval=5.0)
+    for i, host_id in enumerate(("host-a", "host-b")):
+        agent = HostAgent(host_id, data / host_id, respawn_interval=5.0,
+                          cards=None if cards is None else cards[i::2])
         await agent.serve()
         agents.append(agent)
         await http_call(ctl.url + "/register", "POST", json.dumps(

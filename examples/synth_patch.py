@@ -1,4 +1,4 @@
-"""Build a synth patch with the library API and render it offline on TPU.
+"""Build a synth patch with the library API and render it offline on the device.
 
 The same graph a user would click together in the browser — trigger ->
 envelope -> oscillators -> amplifier -> eq -> monitor — constructed

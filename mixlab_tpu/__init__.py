@@ -1,10 +1,10 @@
-"""mixlab_tpu — a TPU-native digital audio/video workstation framework.
+"""mixlab_tpu — a digital audio/video workstation framework on an accelerator.
 
 A ground-up rebuild of the capabilities of haileys/mixlab (a Rust web-based
-DAW) designed for TPU hardware: the patched module graph compiles into a
+DAW) designed for accelerator hardware: the patched module graph compiles into a
 single jitted JAX program rendering many engine ticks per device dispatch;
 IIR/envelope recurrences run as associative scans; video compositing runs as
-Pallas/MXU kernels; codecs, mux, networking and persistence run host-side.
+XLA kernels; codecs, mux, networking and persistence run host-side.
 
 Package map:
   engine/    graph, compiler, realtime engine loop, timing, config

@@ -13,7 +13,7 @@ Correctness anchor: the encoder maintains the DECODER's reconstruction
 transform error breaks that equality loudly.
 
 The forward transform/quant stage is expressed as batched 4x4 matrix
-algebra (einsum) — the same shape runs on the MXU via jax for bulk frames
+algebra (einsum) — the same shape runs on the matrix units via jax for bulk frames
 (``transform_quant_jax``); entropy coding stays on host like every encoder.
 """
 
@@ -531,7 +531,7 @@ def transform_quant_jax(blocks, qp: int):
 
     blocks: [..., 4, 4] integer residuals (any leading batch dims — e.g.
     every 4x4 block of a frame at once).  The two small matmuls batch into
-    MXU-friendly shapes under vmap/jit; entropy coding remains host-side
+    matmul-friendly shapes under vmap/jit; entropy coding remains host-side
     (as in every production encoder).  Matches forward4x4 + quant4x4."""
     import jax.numpy as jnp
 

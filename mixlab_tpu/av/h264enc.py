@@ -12,7 +12,7 @@ intra-only encoder covers exactly.  Two modes:
     quantization + CAVLC entropy coding (§7.3.5.3.2, §9.2): real
     compression for the MSE monitor.  The transform/quant stage is
     vectorized over all macroblocks (numpy here; the same batched-matmul
-    shape rides the MXU via ``transform_frame_jax``).
+    shape rides the matrix units via ``transform_frame_jax``).
 
 Output is Annex-B or AVCC (length-prefixed) access units plus an
 AVCDecoderConfigurationRecord via ``av/avc.py``, feeding ``av/mp4.py``'s

@@ -211,7 +211,7 @@ def make_init_segment(params: Mp4Params) -> bytes:
         _mdia(
             params.timescale,
             b"soun",
-            b"Mixlab-TPU Audio",
+            b"Mixlab Audio",
             full_box(b"smhd", 0, 0, struct.pack(">HH", 0, 0)),
             audio_entry,
         ),
@@ -222,7 +222,7 @@ def make_init_segment(params: Mp4Params) -> bytes:
         _mdia(
             params.timescale,
             b"vide",
-            b"Mixlab-TPU Video",
+            b"Mixlab Video",
             full_box(b"vmhd", 0, 1, struct.pack(">HHHH", 0, 0, 0, 0)),
             _avc1_entry(params.width, params.height, params.dcr),
         ),

@@ -210,7 +210,7 @@ def parse_vorbis_comments(packet: bytes) -> Dict[str, str]:
 
 
 # ---------------------------------------------------------------------------
-# Ogg page writer (muxer) — TPU-build extension; the reference only reads
+# Ogg page writer (muxer) — extension of this build; the reference only reads
 # Ogg (codec/src/ogg.rs), but a writer lets the test suite construct real
 # Vorbis streams and completes the container layer.
 # ---------------------------------------------------------------------------

@@ -8,11 +8,11 @@ Vorbis DSP: codebook entropy/VQ decode, floor type 0 and 1 curve synthesis,
 residue types 0/1/2, square-polar channel coupling, IMDCT and windowed
 overlap-add (Vorbis I specification sections 3-7).
 
-Decode split, TPU-first: packet entropy decode is inherently serial
+Decode split, device-first: packet entropy decode is inherently serial
 byte-twiddling and stays on host (as the reference keeps lewton on a blocking
 decode thread, ``src/icecast/mod.rs:101-138``); the numeric back half — floor
 curve multiply, IMDCT, windowing — is vectorized numpy here, with a batched
-matmul IMDCT (``imdct_batch_jax``) that rides the MXU for offline/bulk
+matmul IMDCT (``imdct_batch_jax``) that rides the matrix units for offline/bulk
 synthesis.
 """
 
@@ -696,7 +696,7 @@ def imdct_batch(specs: np.ndarray) -> np.ndarray:
 
 
 def imdct_matrix(n: int) -> np.ndarray:
-    """Dense IMDCT basis (n x n/2) for the MXU matmul path."""
+    """Dense IMDCT basis (n x n/2) for the matmul path."""
     M = n // 2
     j = np.arange(n)[:, None]
     k = np.arange(M)[None, :]
@@ -704,19 +704,18 @@ def imdct_matrix(n: int) -> np.ndarray:
 
 
 def imdct_batch_jax(specs, basis=None):
-    """TPU path: IMDCT of a batch of spectra as ONE matmul on the MXU.
+    """Device path: IMDCT of a batch of spectra as ONE matmul.
 
-    specs: (B, M) array; returns (B, 2M).  The dense-basis matmul beats
-    gather/FFT formulations on this chip (see BENCH_NOTES round 1: prefer
-    dense matmul even at FLOP redundancy)."""
+    specs: (B, M) array; returns (B, 2M).  The dense basis trades FLOP
+    redundancy for one matmul instead of gather/FFT formulations."""
     import jax
     import jax.numpy as jnp
 
     M = specs.shape[-1]
     if basis is None:
         basis = jnp.asarray(imdct_matrix(2 * M))
-    # audio synthesis needs f32 mantissas: force full-precision MXU passes
-    # (TPU matmul default is bf16 inputs)
+    # audio synthesis needs f32 mantissas: force full-precision matmuls
+    # (the default may take reduced-precision inputs, TF32 on the GPU)
     return jnp.dot(
         jnp.asarray(specs, jnp.float32), basis.T, precision=jax.lax.Precision.HIGHEST
     )

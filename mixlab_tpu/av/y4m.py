@@ -3,7 +3,7 @@
 Capability layer for media_source video playback without codec libraries
 (the reference plays video files via ffmpeg, ``src/module/media_source.rs:
 185-292``; this build's preferred tier is the libavcodec shim, and Y4M is
-the pure tier: header + uncompressed yuv planes, ideal for the TPU path
+the pure tier: header + uncompressed yuv planes, ideal for the device path
 since frames go straight to device memory).
 
 Supported: C420 family (420, 420jpeg, 420mpeg2, 420paldv — all stored

@@ -1,6 +1,6 @@
 """Elementwise / reduction audio modules.
 
-TPU-native kernels with the semantics of the reference modules:
+Device kernels with the semantics of the reference modules:
   * Oscillator      — src/module/oscillator.rs:25-89
   * FmSine          — src/module/fm_sine.rs:37-55
   * Amplifier       — src/module/amplifier.rs:38-73
@@ -10,8 +10,8 @@ TPU-native kernels with the semantics of the reference modules:
   * Trigger         — src/module/trigger.rs:36-49
 
 All are pure elementwise/reduction math over a whole block of ticks, so XLA
-fuses the entire chain into a handful of VPU kernels.  The reference computes
-in f64; on TPU we compute in f32 with host-side f64 phase bases per tick for
+fuses the entire chain into a handful of elementwise kernels.  The reference computes
+in f64; on the device we compute in f32 with host-side f64 phase bases per tick for
 the oscillators (see notes inline) so precision does not degrade with
 absolute time.
 """
@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import jax.numpy as jnp
 import numpy as np
 
-from mixlab_tpu.dsp.base import MegaSpec, ModuleDef, expect_mono, expect_stereo
+from mixlab_tpu.dsp.base import ModuleDef, expect_mono, expect_stereo
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu.protocol import (
     AmplifierParams,
@@ -220,23 +220,6 @@ class AmplifierDef(ModuleDef):
         return state, [((l * scale).astype(jnp.float32),
                         (r * scale).astype(jnp.float32))], {}
 
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            l, r = ctx.expect_stereo(ins[0])
-            amp, md = ctx.pf
-            if ins[1] is None:
-                scale = amp
-            else:
-                scale = (1.0 - md) + md * ins[1]
-                scale = scale * amp
-            return [(l * scale, r * scale)], {}, ([], [])
-
-        return MegaSpec(
-            emit=emit,
-            param_scalars=lambda aux, h: (
-                [aux["amplitude"], aux["mod_depth"]], []),
-        )
-
 
 class MixerDef(ModuleDef):
     kind = "Mixer"
@@ -275,32 +258,6 @@ class MixerDef(ModuleDef):
 
         return state, [mix(g), mix(c)], {}
 
-    def mega_spec(self, params, cfg, block, connected):
-        n = len(params.channels)
-
-        def emit(ctx, ins):
-            if n == 0:
-                z = ctx.zeros()
-                return [(z, z), (z, z)], {}, ([], [])
-            chans = [ctx.expect_stereo(i) for i in ins]
-            g, c = ctx.pf[:n], ctx.pf[n:]
-
-            def mix(w):
-                lo = sum(w[k] * ch[0] for k, ch in enumerate(chans))
-                ro = sum(w[k] * ch[1] for k, ch in enumerate(chans))
-                return (lo, ro)
-
-            z = ctx.zeros()
-            master = mix(g) if ctx.used[0] else (z, z)
-            cue = mix(c) if ctx.used[1] else (z, z)
-            return [master, cue], {}, ([], [])
-
-        return MegaSpec(
-            emit=emit,
-            param_scalars=lambda aux, h: (
-                [aux["gains"], aux["cues"]], []),
-        )
-
 
 class StereoPannerDef(ModuleDef):
     kind = "StereoPanner"
@@ -317,12 +274,6 @@ class StereoPannerDef(ModuleDef):
         right = expect_mono(inputs[1], S)
         return state, [(left, right)], {}  # channel routing = pytree plumbing
 
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            return [(ctx.expect_mono(ins[0]), ctx.expect_mono(ins[1]))], {}, ([], [])
-
-        return MegaSpec(emit=emit)
-
 
 class StereoSplitterDef(ModuleDef):
     kind = "StereoSplitter"
@@ -338,13 +289,6 @@ class StereoSplitterDef(ModuleDef):
         l, r = expect_stereo(inputs[0], S)
         return state, [l, r], {}  # zero device ops
 
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            l, r = ctx.expect_stereo(ins[0])
-            return [l, r], {}, ([], [])
-
-        return MegaSpec(emit=emit)
-
 
 class TriggerDef(ModuleDef):
     kind = "Trigger"
@@ -358,13 +302,3 @@ class TriggerDef(ModuleDef):
     def run_block(self, params, aux, host_aux, state, inputs, cfg, block):
         S = block.n_samples(cfg)
         return state, [jnp.full((S,), aux["value"], dtype=jnp.float32)], {}
-
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            # broadcast-by-add: Mosaic-safe scalar -> [K, C] fill
-            return [ctx.zeros() + ctx.pf[0]], {}, ([], [])
-
-        return MegaSpec(
-            emit=emit,
-            param_scalars=lambda aux, h: ([aux["value"]], []),
-        )

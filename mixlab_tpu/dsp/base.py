@@ -1,8 +1,8 @@
-"""Module definition interface for the TPU DSP layer.
+"""Module definition interface for the device DSP layer.
 
-TPU-native re-design of the reference's ``ModuleT`` trait
+Re-design of the reference's ``ModuleT`` trait
 (``src/module/mod.rs:7-19`` in haileys/mixlab).  Where the reference runs a
-stateful object per tick with borrowed buffers, the TPU build lowers every
+stateful object per tick with borrowed buffers, this build lowers every
 module to a *pure function over a block of ticks*:
 
     run_block(aux, host_aux, state, inputs, cfg, block)
@@ -19,21 +19,14 @@ Data conventions (device):
   * stereo buffer: TUPLE ``(L, R)`` of two f32 ``[S]`` mono arrays
   * video:         handled by the host video engine, not through run_block
 
-Stereo-as-a-pair is the channel-major layout taken to its end point, and it
-is the load-bearing performance decision of the audio path (round 3): an
-``[S, 2]`` array leaves 126 of the VPU's 128 lanes idle per elementwise op
-and forces a materialized stack/unstack at every panner/splitter/oscillator
-boundary, which XLA's fusion did not see through — measured at ~34 us per
-content-second across the flagship's 13 elementwise modules
-(BENCH_NOTES.md "flagship residual profile").  As a pair of perfectly-tiled
-``[S]`` arrays, channel routing (panner, splitter, mono->stereo fanout) is
-pure pytree plumbing with ZERO device ops, duplicated channels (an
-oscillator's L==R) are a single traced value XLA computes once, and every
-elementwise module body is a full-lane ``[S]`` kernel.  Measured A/B at
-module granularity on the same flagship graph: 1.8x (tools/ab_channel_major
-.py, 22k -> 39k x realtime).  Stereo crosses to the host (taps, ext feeds)
-as channel-major ``[2, ...]`` arrays; hosts convert with one numpy
-transpose.
+Stereo-as-a-pair is the channel-major layout taken to its end point: an
+``[S, 2]`` array forces a materialized stack/unstack at every
+panner/splitter/oscillator boundary.  As a pair of ``[S]`` arrays, channel
+routing (panner, splitter, mono->stereo fanout) is pure pytree plumbing with
+ZERO device ops, duplicated channels (an oscillator's L==R) are a single
+traced value XLA computes once, and every elementwise module body is a
+contiguous ``[S]`` kernel.  Stereo crosses to the host (taps, ext feeds) as
+channel-major ``[2, ...]`` arrays; hosts convert with one numpy transpose.
 
 ``aux`` is a pytree of *traced* device values derived from params at edit
 time — continuous params (gains, frequencies) live here so that slider drags
@@ -47,8 +40,7 @@ oscillator phase bases computed in float64 on host for precision) — see
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,98 +49,6 @@ from mixlab_tpu.protocol import Terminal
 
 Array = Any  # jax array
 Pytree = Any
-
-
-@dataclass
-class MegaSpec:
-    """How one module participates in the whole-graph Pallas kernel
-    (:mod:`mixlab_tpu.engine.pallas_graph`).
-
-    The kernel's buffer layout is chunk-major ``[K, 128]`` f32 in linear
-    sample order (sample ``s`` lives at ``[s // 128, s % 128]``); stereo is
-    the usual channel-major ``(L, R)`` pair of such values.  A large block
-    is split into several sequential launches; per-module scalar state
-    crosses between launches through SMEM rows, which requires the layout
-    law below.
-
-    Fields (all trace-time callables):
-      emit(ctx, ins) -> (outs, taps, (f_exits, i_exits))
-          The in-kernel module body.  ``ins[i]`` is a ``[K, 128]`` value,
-          an ``(L, R)`` pair, or None (unconnected -> zero semantics via
-          ``ctx.expect_*``).  ``taps`` maps declared tap names to values
-          (pair / mono [K,128] / scalar).  LAYOUT LAW: the exit scalar
-          lists must match ``state_scalars`` element-for-element — the
-          builder feeds launch N's exits directly as launch N+1's state
-          scalars.
-      param_scalars(aux, host_aux) -> (f32 items, i32 items)
-          Launch-invariant scalars (params).  Items may be 0-d or 1-d
-          traced arrays; they are flattened in order.
-      state_scalars(state) -> (f32 items, i32 items)
-          The module's carried state flattened to scalars (layout == exits).
-      operands(aux, host_aux) -> {name: [S] array}
-          Whole-block per-sample arrays the kernel cannot derive (external
-          feeds, values produced by XLA).  Any dtype.
-      tables(S_launch) -> [np/jnp arrays]
-          Per-launch VMEM constants (e.g. Toeplitz tables sized to the
-          launch's chunk count).
-      scratch(S_launch) -> [(shape, dtype)]
-          Per-launch VMEM scratch requests.
-      unpack(f_exits, i_exits, old_state) -> new state pytree
-          Final-launch exits -> the module's state pytree.
-      tap_post(taps) -> taps
-          Host-side fixup after taps are reassembled to ``[T, spt]``
-          (e.g. OutputDevice's max-|sample| scalar -> clip bool).
-      declare: {"taps": [(name, chans)], "exit_f": n, "exit_i": n}
-          Static structure: ``chans`` 2 = stereo pair, 1 = mono array,
-          0 = scalar (combined across launches with max).
-    """
-
-    emit: Callable
-    declare: Dict[str, Any] = field(
-        default_factory=lambda: {"taps": [], "exit_f": 0, "exit_i": 0}
-    )
-    param_scalars: Callable = lambda aux, host_aux: ([], [])
-    state_scalars: Callable = lambda state: ([], [])
-    operands: Callable = lambda aux, host_aux: {}
-    tables: Callable = lambda S: []
-    scratch: Callable = lambda S: []
-    unpack: Callable = lambda f, i, old: old
-    tap_post: Optional[Callable] = None
-
-
-class EmitCtx:
-    """Per-module view handed to :meth:`MegaSpec.emit` inside the kernel."""
-
-    def __init__(self, S, cfg, block, pf, pi, sf, si, operands, tables,
-                 scratch, t0_index, used):
-        self.S = S              # samples in THIS launch
-        self.K = S // 128
-        self.C = 128
-        self.cfg = cfg
-        self.block = block
-        self.pf = pf            # param f32 scalars (SMEM reads), in order
-        self.pi = pi
-        self.sf = sf            # state f32 scalars (layout == exits)
-        self.si = si
-        self.operands = operands  # {name: [K, 128] value}
-        self.tables = tables      # per-launch constant values
-        self.scratch = scratch    # VMEM scratch refs
-        self.t0_index = t0_index  # launch's sample offset within the block
-        self.used = used          # tuple of bool per output terminal
-
-    def zeros(self):
-        import jax.numpy as jnp
-
-        return jnp.zeros((self.K, self.C), jnp.float32)
-
-    def expect_mono(self, x):
-        return self.zeros() if x is None else x
-
-    def expect_stereo(self, x):
-        if x is None:
-            z = self.zeros()
-            return (z, z)
-        return x
 
 
 class ModuleDef:
@@ -214,16 +114,6 @@ class ModuleDef:
         ``structural_key`` may influence the trace — continuous values must
         be read from ``aux`` (traced) so edits don't recompile."""
         raise NotImplementedError
-
-    def mega_spec(
-        self, params, cfg: EngineConfig, block: BlockSpec,
-        connected: Sequence[bool],
-    ) -> Optional[MegaSpec]:
-        """How this module runs inside the whole-graph Pallas kernel, or
-        None if it can only run through ``run_block`` (the graph then keeps
-        the regular compiled-patch path for any region containing it).
-        ``connected[i]`` says whether input terminal i is wired (static)."""
-        return None
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ machine (Initial / TriggerOn{on} / TriggerOff{off, off_amplitude}) driven by
 exact comparisons ``input == 1.0`` (gate on) and ``input == 0.0`` (gate off),
 with piecewise-linear attack/decay/sustain/release (envelope.rs:34-58,96-117).
 
-A sequential per-sample scan would serialize on the VPU, so the TPU build
+A sequential per-sample scan would serialize on the device, so this build
 reformulates the whole state machine as O(log S) data-parallel passes:
 
   * the ON/OFF mode is a set/reset flip-flop — "last gate event wins" is an
@@ -38,17 +38,11 @@ from mixlab_tpu.protocol import EnvelopeParams, LineType
 _POS_FLOOR = -(2**30)
 _SENTINEL = -(2**31) + 1
 
-# The chunked two-pass implementation (envelope_chunked.py) measured slightly
-# SLOWER than these flat scans under low-variance timing (osc+env graph:
-# 4.2k vs 4.9k x realtime; earlier apparent wins were fetch-latency noise).
-# It stays available as the reference formulation for the Pallas kernel.
+# The chunked two-pass implementation (envelope_chunked.py) is an
+# alternative plain-XLA formulation of the same state machine; it is off
+# (the flat scans below run at every block size) until a measurement on the
+# card shows it faster.
 CHUNKED_THRESHOLD = float("inf")
-
-# Blocks at least this large route to the single-launch Pallas kernel on TPU
-# (dsp/envelope_pallas.py): one HBM read + one write instead of ~19
-# log-depth scan passes.  Realtime-sized blocks keep the flat scans (the
-# kernel's fixed cost only amortizes over big offline blocks).
-PALLAS_THRESHOLD = 32_768
 
 
 def _amp_on(ms_since_on, aux):
@@ -90,15 +84,8 @@ class EnvelopeDef(ModuleDef):
         x = expect_mono(inputs[0], S)
         ms_per_sample = 1000.0 / cfg.sample_rate
 
-        if S >= PALLAS_THRESHOLD and jax.default_backend() == "tpu":
-            from mixlab_tpu.dsp.envelope_pallas import envelope_block_pallas
-
-            out, new_state = envelope_block_pallas(x, state, aux, ms_per_sample)
-            return new_state, [out], {}
-
         if S >= CHUNKED_THRESHOLD:
-            # chunked two-pass evaluation in plain XLA (2 HBM passes; see
-            # envelope_chunked.py) — superseded by the Pallas kernel on TPU
+            # chunked two-pass evaluation in plain XLA (see envelope_chunked.py)
             from mixlab_tpu.dsp.envelope_chunked import run_block_chunked
 
             out, new_state = run_block_chunked(x, state, aux, ms_per_sample)

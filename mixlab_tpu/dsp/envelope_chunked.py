@@ -1,8 +1,7 @@
-"""Chunked two-pass ADSR envelope (Pallas-grade formulation).
+"""Chunked two-pass ADSR envelope.
 
-The flat formulation (dsp/envelope.py) costs ~3 log-depth scans over the
-whole block; its passes are launch-latency-bound on TPU.  This module
-reformulates the state machine as:
+The flat formulation (dsp/envelope.py) costs several log-depth scans over
+the whole block.  This module reformulates the state machine as:
 
   pass A: split the block into K parallel chunks of C samples; each chunk
           runs the *sequential* state machine across all K lanes at once
@@ -16,12 +15,9 @@ reformulates the state machine as:
   pass B: re-run the concrete state machine per chunk (again [K]-wide)
           emitting outputs.
 
-Total HBM traffic ~2 passes over the signal instead of ~19, at the price of
-C sequential steps of [K]-wide vector work.
-
-Both passes run either as ``lax.scan`` (portable; used for correctness
-testing) or as a Pallas kernel (TPU fast path) — they share the same
-step functions.  Semantics identical to dsp/envelope.py (envelope.rs).
+Total memory traffic ~2 passes over the signal instead of ~19, at the price
+of C sequential steps of [K]-wide vector work.  Both passes run as
+``lax.scan``.  Semantics identical to dsp/envelope.py (envelope.rs).
 """
 
 from __future__ import annotations
@@ -196,7 +192,7 @@ def _step_concrete(st, x, t, params, ms_per_sample):
 
 
 # ---------------------------------------------------------------------------
-# full block evaluation (lax.scan passes; Pallas variant in envelope_pallas)
+# full block evaluation (lax.scan passes)
 # ---------------------------------------------------------------------------
 
 
@@ -208,10 +204,9 @@ def _lane_positions(C: int, K: int):
 
 
 def pick_lanes(S: int) -> int:
-    """Lane count tuning (measured on TPU v5e): ~190 sequential steps is the
-    sweet spot — fewer steps shrink scan overhead until the [2,K]-wide step
-    vectors and the K-lane combine start to dominate (K=2048 best at
-    S=384000: 14.4k x realtime vs 6.0k for flat scans; K=8192 regresses)."""
+    """Lane count: about 190 sequential steps per chunk, trading scan
+    length against the width of the [2,K] step vectors and the K-lane
+    combine (not tuned on the GPU)."""
     K = max(256, min(4096, S // 192))
     return ((K + 127) // 128) * 128
 

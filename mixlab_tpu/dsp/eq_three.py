@@ -11,14 +11,15 @@ eq_three.rs:117-124), a 3-sample delay line, and per-band linear gains:
 
 Each one-pole stage is ``y_i = (1-f)·y_{i-1} + f·x_i (+ VSA on stage 0)`` — a
 first-order linear recurrence, which is an associative operation on (a, b)
-pairs under ``(a1,b1)∘(a2,b2) = (a1·a2, a2·b1 + b2)``.  The TPU build runs
+pairs under ``(a1,b1)∘(a2,b2) = (a1·a2, a2·b1 + b2)``.  This build runs
 the lo and hi filters *together* (stacked on a trailing lane axis) through 4
-``associative_scan`` passes — O(log S) depth instead of O(S) — and carries
-the 8 pole values + 3 history samples as explicit state.
+blocked recurrences — chunked Toeplitz matmuls plus an O(log S) scan over the
+chunk carries instead of O(S) sequential steps — and carries the 8 pole
+values + 3 history samples as explicit state.
 
-The reference computes in f64 and stores f32; device math here is f32 (TPU
-has no fast f64).  Golden-fixture tolerance is validated in
-``tests/test_eq_three.py`` against ``fixtures/module/eq_three/``.
+The reference computes in f64 and stores f32; device math here is f32 (the
+accelerator has no fast f64).  Golden-fixture tolerance is validated in
+``tests/test_eq_three_golden.py`` against ``fixtures/module/eq_three/``.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def _linrec_scan(a_const, b, y_init):
     return a_pref * y_init + b_pref
 
 
-_CHUNK = 256  # Toeplitz block size (MXU-friendly, a^C well within f32 range)
+_CHUNK = 256  # Toeplitz block size (matmul-friendly, a^C well within f32 range)
 
 
 @functools.lru_cache(maxsize=8)
@@ -84,10 +85,10 @@ def _toeplitz_tables(a_tuple, C):
 
 def _linrec_blocked(a_tuple, b, y_init):
     """Same recurrence as :func:`_linrec_scan`, evaluated as chunked Toeplitz
-    matmuls on the MXU: within each length-C chunk the zero-state response is
+    matmuls: within each length-C chunk the zero-state response is
     ``T @ b`` (one batched matmul), and the cross-chunk carry is a tiny
     first-order recurrence over S/C chunks solved by an associative scan.
-    ~50x less HBM traffic than the log-depth scan for engine-sized blocks.
+    It moves far fewer bytes than the log-depth scan over the whole block.
 
     ``a_tuple``: python tuple of per-lane coefficients (static);
     ``b`` [S, L], ``y_init`` [L].
@@ -105,9 +106,9 @@ def _linrec_blocked(a_tuple, b, y_init):
 
     b2 = b.reshape(K, C, L)
     # Z[k,i,l] = sum_j T[l,i,j] b2[k,j,l]
-    # HIGHEST: TPU matmuls otherwise use reduced-precision (bf16) inputs,
-    # which costs ~10x accuracy vs the reference's f64 (golden fixture err
-    # 4e-3 -> 4e-4); these matmuls are tiny so full f32 is free
+    # HIGHEST: at default precision f32 matmuls may take reduced-precision
+    # inputs (TF32 on the GPU), which loses digits against the reference's
+    # f64 golden fixture; these matmuls are small, so full f32 costs little
     Z = jnp.einsum(
         "lij,kjl->kil",
         T,
@@ -170,16 +171,6 @@ class EqThreeDef(ModuleDef):
         new_hist = jnp.concatenate([state["hist"], x])[-3:]
         g = aux["gains"]
 
-        from mixlab_tpu.dsp.eq_pallas import PALLAS_THRESHOLD, eq_cascade_pallas
-
-        if S >= PALLAS_THRESHOLD:
-            # single-launch fused kernel: both bands, all four stages, the
-            # chunk-carry scans, and the band mix VMEM-resident
-            out, poles_out = eq_cascade_pallas(
-                x, xd, state["poles"], g, f_lo, f_hi, VSA
-            )
-            return {"poles": poles_out, "hist": new_hist}, [out], {}
-
         f = jnp.asarray([f_lo, f_hi], dtype=jnp.float32)
         a_tuple = (1.0 - f_lo, 1.0 - f_hi)
 
@@ -204,24 +195,3 @@ class EqThreeDef(ModuleDef):
             "hist": new_hist,
         }
         return new_state, [out], {}
-
-    def mega_spec(self, params, cfg, block, connected):
-        from mixlab_tpu.dsp.base import MegaSpec
-        from mixlab_tpu.dsp.eq_pallas import make_mega_emit
-
-        emit, tables = make_mega_emit(cfg.sample_rate)
-
-        def unpack(f, i, old):
-            return {
-                "poles": jnp.stack(f[:8]).reshape(4, 2),
-                "hist": jnp.stack(f[8:11]),
-            }
-
-        return MegaSpec(
-            emit=emit,
-            declare={"taps": [], "exit_f": 11, "exit_i": 0},
-            param_scalars=lambda aux, h: ([aux["gains"]], []),
-            state_scalars=lambda st: ([st["poles"].reshape(-1), st["hist"]], []),
-            tables=tables,
-            unpack=unpack,
-        )

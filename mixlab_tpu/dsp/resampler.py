@@ -1,12 +1,12 @@
-"""Polyphase rational resampler (MXU formulation).
+"""Polyphase rational resampler (matmul formulation).
 
 The reference has NO resampler — non-44.1 kHz Icecast sources are rejected
-with an explicit TODO (``src/icecast/mod.rs:94-97``).  The TPU build adds one
+with an explicit TODO (``src/icecast/mod.rs:94-97``).  This build adds one
 because the benchmark configs run the engine at 48 kHz against 44.1 kHz
 sources (BASELINE.json config 3).
 
 Design: classic polyphase L/M rational resampling (windowed-sinc prototype,
-Kaiser window), reformulated as a dense matmul so it runs on the MXU instead
+Kaiser window), reformulated as a dense matmul so it runs on the matrix units instead
 of as a gather-heavy FIR:
 
   * outputs are grouped L at a time; group ``q`` consumes the input window
@@ -14,8 +14,8 @@ of as a gather-heavy FIR:
   * a dense weight matrix ``W2 [L, W]`` scatters each phase's J taps into its
     window offsets, so a whole block resamples as ``Xwin [G, W] @ W2.T``.
 
-For 44.1k->48k, L/M = 160/147 and W = 147+J-1 — MXU-sized operands.  The
-~W/J× redundant MACs are free: the op is bandwidth-bound and the MXU is idle
+For 44.1k->48k, L/M = 160/147 and W = 147+J-1 — matmul-sized operands.  The
+~W/J× redundant MACs are free: the op is bandwidth-bound and the matrix units are idle
 otherwise.
 
 Carried state is the last J-1 input samples per channel.
@@ -93,7 +93,7 @@ def resample_block(x, ctx, src_rate: int, dst_rate: int, taps_per_phase: int = 3
     xp = jnp.concatenate([ctx, x], axis=0)  # [(J-1)+S_in, C]
     # strided-conv formulation: XLA lowers the overlapping windows natively
     # instead of materializing an im2col gather (the explicit [G, W] gather
-    # measured 2.5x slower on TPU — the conv hits the same MXU matmuls
+    # not chosen: the conv lowers to the same matmuls
     # without the window-copy HBM traffic)
     xr = xp.T[:, None, :]  # [C, 1, (J-1)+S_in]
     y = jax.lax.conv_general_dilated(
@@ -102,7 +102,7 @@ def resample_block(x, ctx, src_rate: int, dst_rate: int, taps_per_phase: int = 3
         window_strides=(M,),
         padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
-        precision=jax.lax.Precision.HIGHEST,  # full-f32 MXU passes
+        precision=jax.lax.Precision.HIGHEST,  # full-f32 matmul passes
     )  # [C, L, G]
     y = y.transpose(2, 1, 0).reshape(G * L, C)
     new_ctx = xp[-(J - 1):]

@@ -26,19 +26,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from mixlab_tpu.dsp.base import MegaSpec, ModuleDef, expect_stereo
-
-
-def _stereo_tap_spec():
-    """MegaSpec for pure audio-tap sinks (Monitor, StreamOutput): the input
-    pair is written to tap outputs, nothing else."""
-
-    def emit(ctx, ins):
-        # audio is the LAST input terminal (video precedes it where present)
-        return [], {"audio": ctx.expect_stereo(ins[-1])}, ([], [])
-
-    return MegaSpec(emit=emit, declare={"taps": [("audio", 2)],
-                                        "exit_f": 0, "exit_i": 0})
+from mixlab_tpu.dsp.base import ModuleDef, expect_stereo
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu.protocol import (
     LineType,
@@ -64,16 +52,6 @@ class PlotterDef(ModuleDef):
             taps["audio"] = (l.reshape(shape), r.reshape(shape))
         return state, [], taps
 
-    def mega_spec(self, params, cfg, block, connected):
-        if not connected[0]:
-            return MegaSpec(emit=lambda ctx, ins: ([], {}, ([], [])))
-
-        def emit(ctx, ins):
-            return [], {"audio": ctx.expect_stereo(ins[0])}, ([], [])
-
-        return MegaSpec(emit=emit, declare={"taps": [("audio", 2)],
-                                            "exit_f": 0, "exit_i": 0})
-
 
 class MonitorDef(ModuleDef):
     kind = "Monitor"
@@ -91,9 +69,6 @@ class MonitorDef(ModuleDef):
         shape = (block.n_ticks, cfg.samples_per_tick)
         taps = {"audio": (l.reshape(shape), r.reshape(shape))}
         return state, [], taps
-
-    def mega_spec(self, params, cfg, block, connected):
-        return _stereo_tap_spec()
 
 
 class OutputDeviceDef(ModuleDef):
@@ -115,24 +90,6 @@ class OutputDeviceDef(ModuleDef):
             "clip": clip,
         }
         return state, [], taps
-
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            l, r = ctx.expect_stereo(ins[0])
-            # scalar taps combine across launches with max; tap_post turns
-            # the peak |sample| back into the regular path's clip bool
-            peak = jnp.max(jnp.maximum(jnp.abs(l), jnp.abs(r)))
-            return [], {"audio": (l, r), "clip": peak}, ([], [])
-
-        def tap_post(taps):
-            return {**taps, "clip": taps["clip"] > 1.0}
-
-        return MegaSpec(
-            emit=emit,
-            declare={"taps": [("audio", 2), ("clip", 0)],
-                     "exit_f": 0, "exit_i": 0},
-            tap_post=tap_post,
-        )
 
 
 class _ExternalFeed(ModuleDef):
@@ -167,18 +124,6 @@ class StreamInputDef(_ExternalFeed):
         audio = (pcm[0].astype(jnp.float32) * k, pcm[1].astype(jnp.float32) * k)
         return state, [None, audio], {}
 
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            k = jnp.float32(1.0 / 32768.0)
-            l = ctx.operands["pcm_l"].astype(jnp.float32) * k
-            r = ctx.operands["pcm_r"].astype(jnp.float32) * k
-            return [None, (l, r)], {}, ([], [])
-
-        return MegaSpec(
-            emit=emit,
-            operands=lambda aux, h: {"pcm_l": h["pcm"][0], "pcm_r": h["pcm"][1]},
-        )
-
 
 class MediaSourceDef(_ExternalFeed):
     kind = "MediaSource"
@@ -198,15 +143,6 @@ class MediaSourceDef(_ExternalFeed):
         pcm = host_aux["pcm"]
         return state, [None, (pcm[0], pcm[1])], {}
 
-    def mega_spec(self, params, cfg, block, connected):
-        def emit(ctx, ins):
-            return [None, (ctx.operands["pcm_l"], ctx.operands["pcm_r"])], {}, ([], [])
-
-        return MegaSpec(
-            emit=emit,
-            operands=lambda aux, h: {"pcm_l": h["pcm"][0], "pcm_r": h["pcm"][1]},
-        )
-
 
 class StreamOutputDef(ModuleDef):
     kind = "StreamOutput"
@@ -224,6 +160,3 @@ class StreamOutputDef(ModuleDef):
         shape = (block.n_ticks, cfg.samples_per_tick)
         taps = {"audio": (l.reshape(shape), r.reshape(shape))}
         return state, [], taps
-
-    def mega_spec(self, params, cfg, block, connected):
-        return _stereo_tap_spec()

@@ -1,7 +1,7 @@
 """Engine configuration.
 
 The reference hard-codes 44.1 kHz / 60 ticks/s / 735 samples per tick
-(``src/engine.rs:52-55``).  The TPU build makes the sample rate a runtime
+(``src/engine.rs:52-55``).  This build makes the sample rate a runtime
 parameter (44_100 for parity against reference goldens, 48_000 for the
 benchmark configs — see BASELINE.md discrepancy note) and adds a block size:
 the number of ticks rendered per device dispatch.  Realtime serving uses
@@ -23,7 +23,7 @@ class EngineConfig:
     ticks_per_second: int = TICKS_PER_SECOND
     channels: int = CHANNELS
     # dtype for on-device DSP math. The reference computes in f64 and stores
-    # f32; TPUs have no fast f64, so device math is f32 with per-kernel
+    # f32; accelerators have no fast f64, so device math is f32 with per-kernel
     # precision workarounds (see dsp/audio.py oscillator phase handling).
     compute_dtype: str = "float32"
 

@@ -4,7 +4,7 @@ Rebuild of the reference's workspace layer (``src/engine/workspace.rs``):
 ``connect`` enforces line-type equality (workspace.rs:97-114), persistence
 mirrors ``persist::Workspace`` (``src/persist.rs:9-21``), and run order uses
 the same terminal-module DFS as the reference's per-tick scheduler
-(``src/engine.rs:400-457``) — except the TPU build computes it once per
+(``src/engine.rs:400-457``) — except this build computes it once per
 *edit*, not per tick, because the compiled program is reused until the graph
 changes.
 

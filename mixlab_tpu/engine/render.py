@@ -1,7 +1,7 @@
 """Offline render driver.
 
 Renders a workspace graph for N ticks in large blocks, collecting taps
-(monitor audio, plotter scopes...).  This is the TPU-mode replacement for
+(monitor audio, plotter scopes...).  This is the replacement for
 letting the realtime engine free-run: one jitted dispatch covers
 ``block.n_ticks`` ticks, and consecutive dispatches carry DSP state.
 """

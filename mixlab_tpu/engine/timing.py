@@ -6,8 +6,8 @@ scheduled deadline), lag recency decaying Active -> Recent -> None
 (``src/util.rs:48-59``), and a ``PerformanceInfo`` report published every
 half second (``src/engine.rs:188-190``).
 
-TPU deviation (documented): the reference accounts per-module wall time
-inside the tick interpreter loop; the TPU engine runs all DSP modules as ONE
+Deviation (documented): the reference accounts per-module wall time
+inside the tick interpreter loop; this engine runs all DSP modules as ONE
 fused device program, so device time is reported under the synthetic
 ``module_id=None`` "device" account plus per-module accounts for host-side
 work (video mixer ticks, codec pipelines).  The wire shape is unchanged.
@@ -51,7 +51,6 @@ class EngineStat:
     accounts: Dict[object, int] = field(default_factory=dict)  # -> last µs
     # whole-window accounting: a single on-schedule LAST tick must not
     # read "realtime" when earlier ticks in the report window lagged
-    # (round-3 verdict: BENCH_r03 flagged realtime=true at 52/60 Hz)
     window_ticks: int = 0
     window_on_schedule: int = 0
     total_ticks: int = 0

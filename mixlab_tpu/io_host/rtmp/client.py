@@ -102,7 +102,7 @@ async def start(
             amf0.encode_all(
                 "connect",
                 1.0,
-                {"app": app, "type": "nonprivate", "flashVer": "mixlab-tpu", "tcUrl": tc_url},
+                {"app": app, "type": "nonprivate", "flashVer": "mixlab", "tcUrl": tc_url},
             ),
         )
     )

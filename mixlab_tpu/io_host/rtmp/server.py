@@ -287,7 +287,7 @@ async def accept(reader, writer):
                         "_result",
                         txn,
                         {
-                            "fmsVer": "mixlab-tpu/0.1",
+                            "fmsVer": "mixlab/0.1",
                             "capabilities": 31.0,
                         },
                         {
@@ -364,7 +364,7 @@ def _on_audio(msg: Message, send, decoder: MediaDecoder):
             send.write_audio(TIME_BASE.scale_timestamp(msg.timestamp), pcm)
         return
     if kind == "pcm_s16le":
-        # codec-less linear PCM path (mixlab-tpu extension; see av/flv.py)
+        # codec-less linear PCM path (extension of this build; see av/flv.py)
         x = np.frombuffer(data, dtype="<i2")
         pcm = x.reshape(-1, 2) if len(x) % 2 == 0 else np.stack([x, x], -1)
         send.write_audio(TIME_BASE.scale_timestamp(msg.timestamp), pcm)

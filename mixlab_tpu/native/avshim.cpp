@@ -1,11 +1,11 @@
 // C++ shim over the system ffmpeg libraries (libavcodec/libavformat/
 // libswscale/libswresample).
 //
-// This is the TPU build's equivalent of the reference's codec crate FFI
+// This is this build's equivalent of the reference's codec crate FFI
 // boundary (/root/reference/codec/src/ffmpeg.rs, codec.rs, format.rs,
 // ioctx.rs and avc/encode.rs): safe-ish C entry points over the raw C API,
 // consumed from Python via ctypes (mixlab_tpu/native/avshim.py).  Only the
-// host codec path lives here — scaling/compositing stays on the TPU
+// host codec path lives here — scaling/compositing stays on the device
 // (video/scale.py, video/blend.py), so swscale is used solely for
 // pixel-format normalization to yuv420p.
 //

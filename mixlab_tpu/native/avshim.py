@@ -2,7 +2,7 @@
 
 The reference links the ffmpeg C API via FFI for every compressed codec
 (``codec/src/ffmpeg*.rs``, ``codec/src/avc/encode.rs``); this module is the
-same boundary for the TPU build: system libavcodec/libavformat behind a thin
+same boundary for this build: system libavcodec/libavformat behind a thin
 C surface, loaded lazily, with ``available()`` gating so codec-less images
 fall back to the pure-Python paths (av/vorbis.py, av/h264enc.py, PCM/PNG).
 

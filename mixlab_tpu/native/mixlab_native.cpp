@@ -1,7 +1,7 @@
-// mixlab-tpu native runtime primitives.
+// mixlab native runtime primitives.
 //
 // The reference implements its runtime in Rust with FFI'd C libraries; the
-// TPU build keeps the device path in XLA/Pallas and implements the host-side
+// This build keeps the device path in XLA and implements the host-side
 // hot paths here in C++ (exposed via ctypes, see __init__.py):
 //
 //   * lock-free SPSC byte ring buffer — the ingest fabric, equivalent of the
@@ -4185,8 +4185,8 @@ int64_t h264_decode_inter(
 // ---------------------------------------------------------------------------
 // Banded separable bicubic resize (round 5).
 //
-// The TPU-first dense-matmul resize (video/scale.py) is the right
-// formulation on the MXU but pathological on host CPU (the dense matrix is
+// The dense-matmul resize (video/scale.py) is the right
+// formulation on the matrix units but pathological on host CPU (the dense matrix is
 // ~99% zeros; measured 4.5 fps for 720p -> 1120x700 under jax-CPU).  The
 // zero-dep publish tier needs a host-rate scaler, so this twin applies the
 // SAME resize weights (packed banded by Python from resize_matrix — scale.py

@@ -4,7 +4,7 @@ The reference is single-process/single-host (SURVEY §2.11); round 1 scaled
 over the chips of ONE host via ``shard_map`` on a local mesh
 (parallel/stems.py).  This module is the multi-host story: the SAME
 shard_map programs run unchanged over a GLOBAL mesh spanning hosts —
-XLA routes intra-host collective hops over ICI and inter-host hops over
+XLA routes intra-host collective hops over the card-to-card links and inter-host hops over
 DCN; no code changes at the call sites.
 
 Bring-up mirrors the standard JAX multi-controller recipe:
@@ -46,8 +46,8 @@ def bring_up(
     """Initialize the JAX distributed runtime and return the global mesh.
 
     Call once per process before any other JAX API touches the backend.
-    On TPU pods the three arguments come from the deployment environment
-    (e.g. hostnames file / scheduler); jax also auto-detects on Cloud TPU
+    On a cluster the three arguments come from the deployment environment
+    (e.g. hostnames file / scheduler); jax auto-detects on some managed clusters
     when called with no arguments."""
     import jax
 

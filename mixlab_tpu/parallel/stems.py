@@ -1,14 +1,14 @@
 """Multi-chip scale-out: stem-parallel audio + row-sharded video.
 
 The reference is a single-process, single-host system (SURVEY §2.11); its
-concurrency is thread pipelining.  The TPU build scales over a device mesh
+concurrency is thread pipelining.  This build scales over a device mesh
 instead:
 
   * **Stem parallelism** (data-parallel-like): N independent copies of a
     patch ("stems" — e.g. the 16-stem config of BASELINE config 3) run as a
     vmapped compiled program whose stem axis is sharded over the mesh's
     ``stems`` axis via ``jax.shard_map``.  A cross-stem mixdown (master sum)
-    is a ``psum`` over ICI — the TPU-native replacement for the reference's
+    is a ``psum`` across the mesh — the replacement for the reference's
     mixer-channel loop.
   * **Spatial video sharding** (tensor-parallel-like): 1080p composite
     planes are sharded by rows across the same mesh; the crossfade blend is
@@ -43,12 +43,22 @@ def make_mesh(n_devices: int | None = None, axis: str = "stems") -> Mesh:
     return Mesh(np.array(devs), (axis,))
 
 
-def stack_for_stems(tree: Any, n_stems: int) -> Any:
-    """Tile a per-stem pytree along a new leading stem axis."""
-    return jax.tree.map(
-        lambda x: jnp.broadcast_to(jnp.asarray(x)[None], (n_stems,) + jnp.asarray(x).shape),
-        tree,
-    )
+def stack_for_stems(tree: Any, n_stems: int, mesh: Mesh,
+                    axis: str = "stems") -> Any:
+    """Tile a per-stem pytree along a new leading stem axis, placed sharded
+    over the mesh's ``axis`` (each device receives only its own stems,
+    straight from the host, instead of everything landing on the first
+    device and being resharded by the step).  A mesh spanning processes
+    gets host values: each process contributes its own stems
+    (parallel/distributed.py)."""
+    return jax.tree.map(lambda x: _place(
+        np.broadcast_to(np.asarray(x)[None], (n_stems,) + np.shape(x)),
+        mesh, axis), tree)
+
+
+def _place(x: np.ndarray, mesh: Mesh, axis: str):
+    sharding = NamedSharding(mesh, P(axis))
+    return jax.device_put(x, sharding) if sharding.is_fully_addressable else x
 
 
 def stem_parallel_step(
@@ -81,7 +91,7 @@ def stem_parallel_step(
         # each device holds a [local_stems, ...] shard; vmap over local stems
         st, taps = jax.vmap(program)(aux, host_aux, state)
         # stereo taps are channel-major (L, R) pairs; mask pad stems, mix
-        # each channel down across local stems, psum across chips (ICI),
+        # each channel down across local stems, psum across chips,
         # then interleave once for the host-facing [T, spt, 2] master
         l, r = taps[monitor_key]["audio"]
         m = mask[:, None, None]
@@ -102,12 +112,11 @@ def stem_parallel_step(
     )
 
     def make_args(t0: int = 0):
-        aux = stack_for_stems(patch.prepare_aux(ws), n_padded)
-        host_aux = stack_for_stems(patch.host_aux(t0), n_padded)
-        state = stack_for_stems(patch.init_state(ws), n_padded)
-        mask = jnp.asarray(
-            np.arange(n_padded) < n_stems, dtype=jnp.float32
-        )
+        aux = stack_for_stems(patch.prepare_aux(ws), n_padded, mesh, axis)
+        host_aux = stack_for_stems(patch.host_aux(t0), n_padded, mesh, axis)
+        state = stack_for_stems(patch.init_state(ws), n_padded, mesh, axis)
+        mask = _place((np.arange(n_padded) < n_stems).astype(np.float32),
+                      mesh, axis)
         return aux, host_aux, state, mask
 
     return fn, make_args, patch
@@ -125,7 +134,7 @@ class StemsPatch:
 
     Tap semantics: every stereo/mono tap leaf is a masked cross-stem
     mixdown, summed on-device per shard then ``psum``-reduced across the
-    mesh (ICI) — the TPU-native master bus.  Pad stems (n_stems not a
+    mesh — the master bus.  Pad stems (n_stems not a
     device multiple) contribute exact zeros.  Host-facing tap shapes equal
     the single-device patch's, so monitor/plotter consumers are untouched.
     """
@@ -163,6 +172,9 @@ class StemsPatch:
             return st, jax.tree.map(mixdown, taps)
 
         spec = P(axis)
+        # the state comes back placed exactly as prepare/init_state place it
+        # (left to itself, jit may return some leaves of a one-device mesh
+        # as P()), so every dispatch and the warm run share one executable
         self._fn = jax.jit(
             jax.shard_map(
                 per_device,
@@ -170,7 +182,8 @@ class StemsPatch:
                 in_specs=(spec, spec, spec),
                 out_specs=(spec, P()),
                 check_vma=False,
-            )
+            ),
+            out_shardings=(NamedSharding(mesh, spec), NamedSharding(mesh, P())),
         )
 
     @classmethod
@@ -182,16 +195,18 @@ class StemsPatch:
     # -- CompiledPatch interface --------------------------------------------
 
     def prepare_aux(self, ws: Workspace):
-        return stack_for_stems(self._patch.prepare_aux(ws), self.n_padded)
+        return stack_for_stems(self._patch.prepare_aux(ws), self.n_padded,
+                               self.mesh, self.axis)
 
     def init_state(self, ws: Workspace):
-        return stack_for_stems(self._patch.init_state(ws), self.n_padded)
+        return stack_for_stems(self._patch.init_state(ws), self.n_padded,
+                               self.mesh, self.axis)
 
     def host_aux(self, t0: int, ext_feeds=None):
         # ext feeds (stream/media PCM) are shared across stems: the mixdown
         # of N copies of one ingest is N x the single feed by design
         return stack_for_stems(self._patch.host_aux(t0, ext_feeds),
-                               self.n_padded)
+                               self.n_padded, self.mesh, self.axis)
 
     def run(self, aux, host_aux, state):
         return self._fn(aux, host_aux, state)

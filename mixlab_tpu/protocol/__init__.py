@@ -1,6 +1,6 @@
 """Shared wire/protocol types.
 
-TPU-native rebuild of the reference protocol crate
+Rebuild of the reference protocol crate
 (``protocol/src/lib.rs:13-478`` in haileys/mixlab): module ids, terminals,
 line types, per-module params/indications, workspace ops, server updates and
 performance info.  These types are shared by the engine, the server and

@@ -4,7 +4,7 @@ Replaces the reference's bincode-over-WebSocket framing
 (``src/server.rs:240,354``; ``frontend/src/session.rs:62,215``) with a
 versioned, self-describing JSON encoding.  bincode is a Rust-specific
 non-self-describing format; a versioned JSON protocol is the deliberate
-TPU-build replacement (documented deviation — the client is rebuilt too, so
+Replacement in this build (documented deviation — the client is rebuilt too, so
 both ends of the wire are ours).
 
 Every dataclass/enum in :mod:`mixlab_tpu.protocol` round-trips through

@@ -115,9 +115,10 @@ def main():
     parser.add_argument("--block-ticks", type=int, default=60)
     args = parser.parse_args()
 
-    from mixlab_tpu.utils.platform import apply_env_platform
+    from mixlab_tpu.utils.platform import apply_env_platform, enable_compile_cache
 
     apply_env_platform()
+    enable_compile_cache()
 
     from mixlab_tpu.engine.config import EngineConfig
     from mixlab_tpu.engine.graph import Workspace

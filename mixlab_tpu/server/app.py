@@ -118,7 +118,7 @@ class Server:
                 # drain so the next keep-alive request parses cleanly
                 await reader.readexactly(length)
         if req.path == "/" and req.method == "GET":
-            body = INDEX_HTML.read_bytes() if INDEX_HTML.exists() else b"mixlab-tpu"
+            body = INDEX_HTML.read_bytes() if INDEX_HTML.exists() else b"mixlab"
             writer.write(response(200, "OK", body, "text/html; charset=utf-8",
                                   keep_alive=keep))
         elif req.path.startswith("/static/") and req.method == "GET":
@@ -224,6 +224,10 @@ class Server:
                "Connections in the workspace")
         metric("mixlab_monitor_pipelines", len(eng._monitor_pipelines),
                "Live monitor codec pipelines")
+        for fault, n in eng.block_faults.items():
+            metric(f"mixlab_engine_blocks_{fault}_total", n,
+                   f"Device blocks {fault} (lost: timed out; redispatched: "
+                   "run again after a loss; dropped: no output)", "counter")
         info = eng.performance_info()
         if info is not None:
             metric("mixlab_engine_realtime", int(info.realtime),

@@ -1,7 +1,7 @@
 """Fleet controller: spawn / route / migrate workspaces across hosts.
 
 The reference is a single-process server for one workspace (``src/main.rs``);
-this module is the TPU-build's production scale-out story (SURVEY §2.11
+this module is this build's production scale-out story (SURVEY §2.11
 extension, continuing parallel/distributed.py's multi-host work): many
 workspaces served by a fleet of machines, each workspace an ordinary
 ``mixlab_tpu`` server process bound to its own port.
@@ -12,7 +12,8 @@ Three roles, all speaking the repo's own HTTP stack:
     ``GET /_checkpoint`` (runtime DSP-state snapshot, taken on the engine
     thread) and ``POST /_restore`` (adopt a snapshot) for live migration.
   * **HostAgent** — one per machine: spawns/stops worker processes
-    (``POST /spawn/<key>``, ``POST /stop/<key>``), reports them
+    (``POST /spawn/<key>``, ``POST /stop/<key>``), one per card on a GPU
+    host (each worker sees only its own card), reports them
     (``GET /health``), and packages a workspace for migration
     (``GET /export/<key>`` = checkpoint + project file bytes;
     ``POST /import/<key>`` = the reverse).
@@ -42,7 +43,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -174,6 +175,28 @@ def free_port(bind: str = "127.0.0.1") -> int:
 # ---------------------------------------------------------------------------
 
 
+def host_cards() -> Optional[List[str]]:
+    """The NVIDIA cards this host may hand to workers, as
+    ``CUDA_VISIBLE_DEVICES`` entries, or None when workers run on the CPU
+    (``JAX_PLATFORMS=cpu``) or the host has no NVIDIA card: then the
+    number of workers is not bounded by cards."""
+    if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+        return None
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return [c.strip() for c in visible.split(",") if c.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return [c.strip() for c in out.splitlines() if c.strip()] or None
+
+
+_DETECT = object()
+
+
 class HostAgent:
     """Per-machine process manager for workspace servers."""
 
@@ -181,9 +204,16 @@ class HostAgent:
                  python: str = sys.executable, spawn_timeout: float = 300.0,
                  respawn_interval: Optional[float] = None,
                  token: Optional[str] = None,
-                 tls: Optional[FleetTls] = None):
+                 tls: Optional[FleetTls] = None,
+                 cards: Optional[Sequence[str]] = _DETECT):
+        """``cards``: the cards workers may use, one worker per card (a JAX
+        process reserves most of a card's memory, so a second one on the
+        same card fails); None = no card limit (CPU workers).  Detected
+        with :func:`host_cards` by default."""
         self.token = token
         self.tls = tls
+        self.cards = host_cards() if cards is _DETECT else (
+            None if cards is None else list(cards))
         self._client_ssl = tls.client_ctx() if tls else None
         self.host_id = host_id
         self.data_dir = Path(data_dir)
@@ -219,9 +249,12 @@ class HostAgent:
             ent = self.procs.get(key)
             if ent and ent["proc"].poll() is None:
                 return {"url": ent["url"], "already": True}
+            card = self._free_card()
             port = free_port(self.bind)
             logfile = open(self.data_dir / f"{key}.log", "ab")
             env = dict(os.environ)
+            if card is not None:
+                env["CUDA_VISIBLE_DEVICES"] = card
             if self.token:
                 # workers gate /_checkpoint and /_restore on the same secret
                 env["MIXLAB_FLEET_TOKEN"] = self.token
@@ -252,8 +285,22 @@ class HostAgent:
             else:
                 proc.terminate()
                 raise RuntimeError(f"worker for {key} never became ready")
-            self.procs[key] = {"proc": proc, "port": port, "url": url}
+            self.procs[key] = {"proc": proc, "port": port, "url": url,
+                               "card": card}
             return {"url": url, "already": False}
+
+    def _free_card(self) -> Optional[str]:
+        """A card no live worker holds; None on a host without a card
+        limit.  Raises when every card is taken."""
+        if self.cards is None:
+            return None
+        held = {e.get("card") for e in self.procs.values()
+                if e["proc"].poll() is None}
+        for card in self.cards:
+            if card not in held:
+                return card
+        raise RuntimeError(
+            f"all {len(self.cards)} cards of host {self.host_id} hold a worker")
 
     async def stop(self, key: str) -> bool:
         ent = self.procs.pop(key, None)
@@ -530,8 +577,8 @@ class FleetController:
         return {"host": host_id, **result}
 
     async def _spawn_on(self, host_id: str, key: str) -> dict:
-        # worker boot includes backend init (up to minutes on a degraded
-        # tunnel) — the spawn call must outlive the agent's spawn_timeout
+        # worker boot includes backend init and the first compile — the
+        # spawn call must outlive the agent's spawn_timeout
         status, body = await http_call(
             self.agents[host_id]["url"] + f"/spawn/{key}", "POST",
             timeout=330.0, token=self.token, ssl_ctx=self._client_ssl)
@@ -689,6 +736,9 @@ def main(argv=None):
         sp.add_argument("--tls-ca", default=os.environ.get("MIXLAB_FLEET_TLS_CA"))
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    from mixlab_tpu.utils.platform import enable_compile_cache
+
+    enable_compile_cache()  # inherited by the workers an agent starts
     tls = (FleetTls(args.tls_cert, args.tls_key, args.tls_ca)
            if args.tls_cert and args.tls_key else None)
 

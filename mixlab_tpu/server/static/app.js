@@ -1,4 +1,4 @@
-/* mixlab-tpu web client.
+/* mixlab web client.
  *
  * Rebuild of the reference's Yew/WASM frontend (frontend/src/, ~4.9k LoC
  * Rust) as a dependency-free JS app:

@@ -251,7 +251,7 @@ class StreamOutputController:
                 # The pure tier now runs the REFERENCE frame rate (30 fps,
                 # stream_output.rs:216).  Round-5 profile of the pipeline
                 # (tools/profile_pure_publish.py): the 15 fps cap was the
-                # SCALE stage — the TPU-first dense-matmul resize measured
+                # SCALE stage — the dense-matmul resize measured
                 # 4.5 fps on host CPU; the banded host twin
                 # (video/scale_host.py) does ~200 fps, the C++ encoder
                 # ~100 fps, AAC-160k ~40% of one core.  Video runs on its

@@ -1,6 +1,6 @@
 """Exact rational media time algebra.
 
-TPU-native rebuild of the reference's rational timestamp layer
+Rebuild of the reference's rational timestamp layer
 (``util/src/time.rs:10-152`` in haileys/mixlab): ``MediaTime`` /
 ``MediaDuration`` are exact rational instants/durations, ``TimeBase`` scales
 integer codec timestamps into rational time.  Host-side only — on device,

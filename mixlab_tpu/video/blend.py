@@ -1,21 +1,16 @@
-"""Crossfade blend kernel — the flagship Pallas kernel.
+"""Crossfade blend kernel.
 
 Reference inner loop: ``src/module/video_mixer.rs:210-235`` — per plane,
 ``out = (a*fade + b*(255-fade)) / 255`` in u8-load / u16-math / truncating
 integer division, 32 pixels per AVX2 iteration.
 
-TPU version: the same exact integer semantics, vectorized over whole planes.
-Two implementations with identical results:
+Device version: the same exact integer semantics, vectorized over whole
+planes as plain jnp, which XLA fuses into one memory-bound elementwise
+kernel.  The exact ÷255 uses the multiply-shift identity
+``x//255 == (x*32897) >> 23`` (valid for 0 <= x <= 65535, verified in tests),
+avoiding an integer divide.
 
-  * ``crossfade_xla`` — plain jnp; XLA fuses it into one VPU kernel.  The
-    exact ÷255 uses the multiply-shift identity  ``x//255 == (x*32897) >> 23``
-    (valid for 0 <= x <= 65535, verified in tests), avoiding an integer
-    divide.
-  * ``crossfade_pallas`` — explicit Pallas kernel tiling planes into VMEM
-    blocks; used on TPU for peak throughput and as the template for fusing
-    blend+colorspace chains.
-
-Both operate on u8 arrays of any [..., H, W] shape, so a batch of frames
+It operates on u8 arrays of any [..., H, W] shape, so a batch of frames
 (bench mode: one tick per batch row) blends in a single dispatch.
 """
 
@@ -25,7 +20,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def _div255_u32(x):
@@ -45,69 +39,7 @@ def crossfade_xla(a, b, fade):
     return _div255_u32(acc).astype(jnp.uint8)
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernel
-# ---------------------------------------------------------------------------
-
-
-def _blend_kernel(fade_ref, a_ref, b_ref, out_ref):
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    fade = fade_ref[0].astype(jnp.uint32)
-    a = a_ref[...].astype(jnp.uint32)
-    b = b_ref[...].astype(jnp.uint32)
-    acc = a * fade + b * (jnp.uint32(255) - fade)
-    out_ref[...] = _div255_u32(acc).astype(jnp.uint8)
-
-
-def crossfade_pallas(a, b, fade, row_tile: int = 256):
-    """Pallas-tiled crossfade. Same semantics as :func:`crossfade_xla`.
-
-    Planes are reshaped to [R, C] with C a multiple of the lane width; rows
-    are tiled through VMEM.  Requires total size divisible by 128; callers
-    pad planes (videos here have widths that are multiples of 16; H*W of any
-    yuv420 plane of even dims is divisible by 128 for widths % 128-friendly
-    sizes — the wrapper below pads defensively).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    shape = a.shape
-    n = int(np.prod(shape))
-    lane = 1024
-    pad = (-n) % lane
-    av = jnp.pad(a.reshape(-1), (0, pad)).reshape(-1, lane)
-    bv = jnp.pad(b.reshape(-1), (0, pad)).reshape(-1, lane)
-    rows = av.shape[0]
-    rt = min(row_tile, rows)
-    grid = (pl.cdiv(rows, rt),)
-    fade_arr = jnp.asarray([fade], dtype=jnp.uint8).astype(jnp.int32)
-
-    out = pl.pallas_call(
-        _blend_kernel,
-        interpret=jax.default_backend() != "tpu",
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((rt, lane), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((rt, lane), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((rt, lane), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(av.shape, jnp.uint8),
-    )(fade_arr, av, bv)
-    return out.reshape(-1)[:n].reshape(shape)
-
-
-def crossfade(a, b, fade, use_pallas: bool | None = None):
-    """Dispatch to the Pallas kernel on TPU, XLA elsewhere."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        return crossfade_pallas(a, b, fade)
-    return crossfade_xla(a, b, fade)
-
-
-def crossfade_picture(a_planes: dict, b_planes: dict, fade: int, use_pallas=None):
+def crossfade_picture(a_planes: dict, b_planes: dict, fade: int):
     """Blend all planes of two same-format pictures.
 
     Eager callers (realtime video tick) get one compiled dispatch for all
@@ -116,11 +48,11 @@ def crossfade_picture(a_planes: dict, b_planes: dict, fade: int, use_pallas=None
     first = a_planes[keys[0]]
     if isinstance(first, jax.core.Tracer):
         return {
-            k: crossfade(a_planes[k], b_planes[k], fade, use_pallas)
+            k: crossfade_xla(a_planes[k], b_planes[k], fade)
             for k in a_planes
         }
     shapes = tuple(a_planes[k].shape for k in keys)
-    f = _crossfade_picture_jit(keys, shapes, use_pallas)
+    f = _crossfade_picture_jit(keys, shapes)
     outs = f(tuple(a_planes[k] for k in keys),
              tuple(b_planes[k] for k in keys),
              jnp.uint8(fade))
@@ -128,11 +60,10 @@ def crossfade_picture(a_planes: dict, b_planes: dict, fade: int, use_pallas=None
 
 
 @functools.lru_cache(maxsize=64)
-def _crossfade_picture_jit(keys, shapes, use_pallas):
+def _crossfade_picture_jit(keys, shapes):
     def f(a_list, b_list, fade):
         return tuple(
-            crossfade(a, b, fade, use_pallas)
-            for a, b in zip(a_list, b_list)
+            crossfade_xla(a, b, fade) for a, b in zip(a_list, b_list)
         )
 
     return jax.jit(f)

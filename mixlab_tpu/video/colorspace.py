@@ -1,7 +1,7 @@
 """RGB <-> YUV420p colorspace kernels (BT.601 limited range).
 
 The reference keeps everything yuv420p on the hot path and defers RGB
-support with a TODO (``src/module/video_mixer.rs:280``); the TPU build
+support with a TODO (``src/module/video_mixer.rs:280``); this build
 implements both directions so test-pattern sources and future RGB ingest
 compose natively (BASELINE config 4 requires RGB->YUV420).
 
@@ -11,7 +11,7 @@ Math: ITU-R BT.601 "studio swing":
     V = 128 + 112.0  R' - 93.786 G' - 18.214 B'
 Chroma is 2x2 box-averaged for 4:2:0 (matching the common swscale default),
 computed in f32 and rounded to u8.  All ops are fusable elementwise +
-reshape-mean; the 3x3 matrix contraction maps to the MXU for batched frames.
+reshape-mean; the 3x3 matrix contraction maps to the matrix units for batched frames.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def rgb_to_yuv420(rgb):
     """[H, W, 3] u8 -> (y [H,W], u [H/2,W/2], v [H/2,W/2]) u8.
 
     H and W must be even (yuv420 chroma alignment).  Written as explicit
-    per-channel linear combinations (VPU-fused elementwise) rather than an
-    einsum — a K=3 contraction would waste the MXU and block fusion."""
+    per-channel linear combinations (fused elementwise) rather than an
+    einsum — a K=3 contraction would waste the matrix units and block fusion."""
     H, W, _ = rgb.shape
     r = rgb[..., 0].astype(jnp.float32)
     g = rgb[..., 1].astype(jnp.float32)
@@ -65,12 +65,9 @@ def rgb_planes_to_yuv420(r, g, b):
     Same math as :func:`rgb_to_yuv420` (identical results,
     tests/test_video.py), minus the interleaved [H, W, 3] layout in the
     dataflow.  Pattern sources generate planes natively, so sources that
-    have planes should pass them here rather than stacking.  Measured
-    caveat (tools/ab_video_kernels.py, on-chip round 3): unlike the
-    audio [S, 2] case, the planar formulation was NOT faster than the
-    interleaved one at 960x540 — XLA already fuses the channel slices
-    into the converter — so this entry point is a layout convenience,
-    not a perf claim; see BENCH_NOTES "config5 stage profile"."""
+    have planes should pass them here rather than stacking.  XLA already
+    fuses the channel slices into the converter, so this entry point is a
+    layout convenience, not a perf claim (not measured on the GPU)."""
     H, W = r.shape
     rf = r.astype(jnp.float32)
     gf = g.astype(jnp.float32)
@@ -91,13 +88,12 @@ def rgb_planes_to_yuv420(r, g, b):
 def _box2_u8(p):
     """Exact 2x2 box SUM of a u8 plane -> u16 [H/2, W/2], no strided slices.
 
-    The obvious formulations are all lane-hostile on this TPU: a
-    ``[H//2, 2, W//2, 2]`` reshape (or any ``[:, 0::2]`` slice) needs a
-    stride-2 gather on the minor/lane dimension — the documented ~200x
-    pathology on this box (BENCH_NOTES "stride-2 slicing").  Instead,
-    reinterpret each adjacent byte PAIR as one u16 lane (a pure bitcast:
-    TPU/x86 are little-endian, so lo byte = even column), split with
-    ``& 255`` / ``>> 8`` — full-lane VPU ops — and pair rows on the
+    The obvious formulations need a strided access on the minor
+    dimension: a ``[H//2, 2, W//2, 2]`` reshape (or any ``[:, 0::2]``
+    slice) is a stride-2 gather.  Instead, reinterpret each adjacent byte
+    PAIR as one u16 lane (a pure bitcast: the device and x86 are
+    little-endian, so lo byte = even column), split with
+    ``& 255`` / ``>> 8`` — full-width vector ops — and pair rows on the
     sublane dimension where reshape-sum is cheap."""
     import jax.lax as lax
 

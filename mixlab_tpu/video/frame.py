@@ -2,7 +2,7 @@
 
 Rebuild of the reference's frame plumbing: ``video::Frame`` wraps a decoded
 ffmpeg AvFrame plus a duration hint (``src/video.rs:7-14``), and the engine
-payload adds a tick offset (``src/engine/io.rs:11-17``).  The TPU build keeps
+payload adds a tick offset (``src/engine/io.rs:11-17``).  This build keeps
 pixels as plain device arrays — planar uint8 YUV420 (or interleaved uint8
 RGB) — so every pixel operation is a JAX/Pallas kernel.
 

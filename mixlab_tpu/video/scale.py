@@ -1,8 +1,8 @@
-"""Separable bicubic rescale as two MXU matmuls + letterbox compose.
+"""Separable bicubic rescale as two dense matmuls + letterbox compose.
 
 Reference: ``DynamicScaler`` (``src/video/encode.rs:310-398``) wraps
 swscale's BICUBIC with aspect-preserving letterbox into a chroma-aligned
-subframe.  Bit parity with swscale is impractical (SURVEY §7); the TPU build
+subframe.  Bit parity with swscale is impractical (SURVEY §7); this build
 reimplements the same geometry with a Mitchell–Netravali bicubic (B=0,
 C=0.6 — swscale's default bicubic parameterization) as a *dense separable
 resample*:
@@ -10,8 +10,8 @@ resample*:
     out = clip(round(W_h @ in @ W_w^T))
 
 where W_h [H_out, H_in] and W_w [W_out, W_in] are precomputed host-side and
-cached per (in, out) size pair.  Two matmuls per plane → the MXU does the
-work; u8 planes are widened to f32 on the way in and rounded back on the way
+cached per (in, out) size pair.  Two matmuls per plane → the matrix units
+do the work; u8 planes are widened to f32 on the way in and rounded back on the way
 out (XLA fuses the casts into the matmuls).
 
 Letterbox geometry matches encode.rs:354-396: integer scale ratio
@@ -91,7 +91,7 @@ def _phase_taps(n_in: int, n_out: int):
 
 def _upscale_axis(x, n_out: int, axis: int):
     """Polyphase integer-ratio upscale along ``axis`` — pure shifts and
-    multiply-adds (VPU), ~J FLOPs/output instead of an n_in-wide matmul."""
+    multiply-adds, ~J FLOPs/output instead of an n_in-wide matmul."""
     n_in = x.shape[axis]
     r, lo, taps = _phase_taps(n_in, n_out)
     J = taps.shape[1]
@@ -131,7 +131,7 @@ def _resize_matrix_i8(n_in: int, n_out: int):
 
 def _resize_matrix_i8_from(W: np.ndarray):
     """Quantize an arbitrary resample-style matrix (rows summing ~1) for the
-    s8 MXU path — also used for algebraically folded matrices
+    s8 x s8 -> s32 path — also used for algebraically folded matrices
     (video/fused.py)."""
     W = np.asarray(W, dtype=np.float64)
     s = 127.0 / np.maximum(np.abs(W).max(axis=1, keepdims=True), 1e-12)
@@ -155,21 +155,16 @@ def _banded_blocks_i8(n_in: int, n_out: int, block: int = 0):
     The dense [n_out, n_in] bicubic matrix is banded (each output row reads
     ~4 neighboring inputs), so an output block of ``block`` rows touches only
     a short input window.  Batching per-block [block, K] x [K, ...] matmuls
-    keeps the work on the MXU (the round-2 lesson: VPU polyphase loses) while
-    cutting the contraction from n_in to K — fewer MACs by n_in/K.  The
+    keeps the work in matmuls while cutting the contraction from n_in to K
+    — fewer MACs by n_in/K.  The
     zero columns inside each window contribute exactly 0 to the s32
     accumulator, so results are BIT-IDENTICAL to the dense int8 path
     (asserted in tests/test_video.py).
 
-    MEASURED NEGATIVE RESULT (round 3, tools/ab_banded_resize.py, 3
-    interleaved pairs on chip): 112 vs 18 us/frame at config5's geometry —
-    6x SLOWER than dense despite 3.4x fewer MACs.  The overlapping-window
-    stack materializes a relayout copy and the K~136 contraction underfills
-    the 128x128 systolic tiles; the dense matmul amortizes both.  This
-    extends the round-2 rule (BENCH_NOTES "video resize roofline"): on this
-    chip, prefer the dense MXU formulation even at ~100x FLOP redundancy.
-    Kept opt-in (MIXLAB_RESIZE_BANDED=1) as the tested negative result;
-    bit-exactness vs dense is asserted in tests/test_video.py.
+    The overlapping-window stack materializes a relayout copy, which the
+    dense matmul avoids; the banded form is opt-in (MIXLAB_RESIZE_BANDED=1)
+    and not measured on the GPU (tools/ab_banded_resize.py compares them).
+    Bit-exactness vs dense is asserted in tests/test_video.py.
 
     Returns (Wb int8 [nb, block, K], starts tuple, K) or None when the band
     is too wide to save meaningful work (e.g. heavy minification)."""
@@ -199,8 +194,7 @@ def _banded_blocks_i8(n_in: int, n_out: int, block: int = 0):
 def _banded_enabled() -> bool:
     import os
 
-    # default OFF: measured 6x slower than dense on chip (see
-    # _banded_blocks_i8 docstring); opt-in for re-measurement
+    # default OFF (see _banded_blocks_i8 docstring); opt-in for measurement
     return os.environ.get("MIXLAB_RESIZE_BANDED", "0") == "1"
 
 
@@ -235,7 +229,7 @@ def _int8_cols_matmul(xc, n_out: int):
 
 
 def _resize_plane_int8(plane, out_h: int, out_w: int):
-    """Two int8 MXU matmuls (s8 x s8 -> s32 at 2x the bf16 rate on v5e/v6e).
+    """Two int8 matmuls (s8 x s8 -> s32, the int8 tensor-core path).
 
     Planes are centered to [-128, 127] so they fit int8 exactly; the
     intermediate between the separable passes is requantized to centered
@@ -263,31 +257,30 @@ def _resize_plane_int8(plane, out_h: int, out_w: int):
     return jnp.clip(jnp.round(y), 0, 255).astype(jnp.uint8)
 
 
-def _int8_default() -> bool:
-    """int8 resize wins only where the MXU has a double-rate s8 path; on CPU
-    the f32 path is both faster and exacter."""
-    import jax
-
-    return jax.default_backend() == "tpu"
+# The resize route: f32 matmuls at the backend's default precision (TF32
+# tensor cores on an H100, exact f32 on the CPU), chosen on the card over
+# full-f32 and int8 at the config4 and monitor/broadcast shapes (PERF.md
+# "Video resize route").  "int8" (s8 x s8 -> s32) stays selectable by name.
+RESIZE_ROUTE = "f32"
 
 
 def resize_plane(plane, out_h: int, out_w: int, method: str = "auto"):
     """Bicubic resize of a [H, W] u8 plane via two dense matmuls.
 
-    ``method``: "auto" (int8 on TPU, f32 elsewhere), "int8", or "f32".
-
-    NOTE: a polyphase shift/MAC fast path for integer upscales exists above
-    (:func:`_upscale_axis`) but measured SLOWER on TPU (config5 422x -> 162x):
-    the J*r shifted elementwise terms are HBM-bound while the dense matmul
-    rides the MXU.  The fast path is kept for CPU-bound uses and as the
-    seed of a fused Pallas resize kernel."""
+    ``method``: "auto" (:data:`RESIZE_ROUTE`), "f32" or "int8".  A
+    polyphase shift/MAC form for integer upscales exists above
+    (:func:`_upscale_axis`); it is not on this path."""
+    if method == "auto":
+        method = RESIZE_ROUTE
+    if method not in ("f32", "int8"):
+        raise ValueError(f"unknown resize method {method!r}")
     in_h, in_w = plane.shape
-    if method == "int8" or (method == "auto" and _int8_default()):
+    if method == "int8":
         if in_h != out_h or in_w != out_w:
             return _resize_plane_int8(plane, out_h, out_w)
     x = plane.astype(jnp.float32)
-    # default (bf16-input) MXU precision: outputs are 8-bit pixels (<=1 LSB
-    # effect); HIGHEST measured 4.7x slower at 1080p
+    # outputs are 8-bit pixels, so the default precision's reduced-mantissa
+    # inputs cost at most about one LSB (PERF.md states the measured error)
     if in_h != out_h:
         Wh = jnp.asarray(resize_matrix(in_h, out_h))
         x = jnp.einsum("oi,iw->ow", Wh, x, preferred_element_type=jnp.float32)

@@ -1,7 +1,7 @@
 """Host-rate scale+letterbox twin of video/scale.py (round 5).
 
-The dense-matmul resize is the right formulation ON THE MXU (BENCH_NOTES:
-dense beats VPU polyphase and banded-MXU) but pathological on host CPU —
+The dense-matmul resize is the right formulation on the device's matrix
+units but pathological on host CPU —
 the matrices are ~99% zeros, and the zero-dep publish pipeline measured
 4.5 fps at the reference broadcast op point with the scale as the limiter
 (tools/profile_pure_publish.py; the C++ H.264 encoder alone does ~100 fps

@@ -2,7 +2,7 @@
 
 These mirror the reference Rust code operation-for-operation (in numpy/f64,
 the same precision the reference computes in) and serve as the correctness
-baseline for the TPU kernels.  Each function cites the reference lines it
+baseline for the device kernels.  Each function cites the reference lines it
 mirrors.  Deliberately straightforward — clarity over speed.
 """
 
@@ -192,3 +192,35 @@ def eq_three_fast(x, gain_lo_db, gain_mid_db, gain_hi_db, sample_rate):
     g_mid = 10.0 ** (gain_mid_db / 20.0)
     g_hi = 10.0 ** (gain_hi_db / 20.0)
     return (lo * g_lo + mid * g_mid + hi * g_hi).astype(np.float32)
+
+
+# --- the flagship 16-module graph (bench.py build_16_module_graph) ----------
+
+
+def flagship_16_module(n_samples: int, sr: int):
+    """Monitor output [S, 2] of bench.py's build_16_module_graph, composed
+    from the kernels above in f64."""
+    # trigger open -> envelope
+    gate = np.ones(n_samples, dtype=np.float32)
+    env, _ = envelope(0, gate, 25.0, 500.0, 0.8, 200.0, sr)
+
+    # four osc(110*i) -> amplifier(0.5, mod 0.3 by env)
+    amps = []
+    for i in range(4):
+        mono = oscillator(0, n_samples, 110.0 * (i + 1), "sine", sr)
+        stereo = np.stack([mono, mono], -1)
+        amps.append(amplifier(stereo, env, 0.5, 0.3))
+
+    # fm_sine driven by env
+    fm_mono = fm_sine(0, env, 440.0, 880.0, sr)
+    fm = np.stack([fm_mono, fm_mono], -1)
+
+    # splitter(amps[0]) -> eq(L) ; panner(eq_L, amp0_R)
+    eq_l, _ = eq_three(amps[0][:, 0], 4.0, 0.0, 4.0, sr)
+    pan = np.stack([eq_l, amps[0][:, 1]], -1)
+
+    # mixer channels: amps0-3, fm, pan, amps[1], amps[2]; defaults: gain 0dB,
+    # fader 1.0, cue off
+    inputs = [amps[0], amps[1], amps[2], amps[3], fm, pan, amps[1], amps[2]]
+    master, _ = mixer(inputs, [0.0] * 8, [1.0] * 8, [False] * 8)
+    return master

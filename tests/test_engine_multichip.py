@@ -168,3 +168,63 @@ def test_structural_edit_under_realtime_thread(mesh):
         assert eng._thread.is_alive()
     finally:
         eng.stop()
+
+
+def _wait_for(cond, seconds, what):
+    deadline = time.monotonic() + seconds
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.02)
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["direct", "thread"])
+@pytest.mark.parametrize("n_devices", [1, 8])
+def test_each_program_compiles_once_without_block_faults(n_devices, realtime):
+    """Through a structural edit, each StemsPatch program is compiled once:
+    its warm run (realtime swap) and every dispatch share one executable,
+    because inputs are placed on the mesh as the program's outputs are.  A
+    recompile inside a warmed dispatch could outlast DISPATCH_TIMEOUT and be
+    counted as a lost block; none is lost, re-dispatched or dropped."""
+    ws, o, a, m = template()
+    # an EqThree on the oscillator's mono output into the amplifier's mono
+    # input: its filter state is what came back replicated from a one-device
+    # mesh before the program's output placement was pinned
+    eq = ws.create_module(p.ModuleParams("EqThree", p.EqThreeParams(
+        p.Decibel(3.0), p.Decibel(0.0), p.Decibel(-3.0))))
+    ws.connect(InputId(eq, 0), OutputId(o, 0))
+    ws.connect(InputId(a, 1), OutputId(eq, 0))
+    eng = Engine(workspace=ws, cfg=CFG, block_ticks=4,
+                 patch_compiler=StemsPatch.compiler(make_mesh(n_devices),
+                                                    N_STEMS))
+    captured = capture_taps(eng)
+    first = eng._patch
+    send = eng.update if realtime else eng.client_update
+    if realtime:
+        eng.start()
+    try:
+        sid, _, _ = eng.connect_session()
+        for _ in range(2):
+            if not realtime:
+                eng.tick_once()
+        _wait_for(lambda: len(captured) >= 2, 30, "no blocks")
+        before = set(eng.ws.modules)
+        send(sid, p.WorkspaceMessage(1, p.CreateModule(
+            p.ModuleParams("Oscillator",
+                           p.OscillatorParams(220.0, p.Waveform.SAW)),
+            p.WindowGeometry())))
+        _wait_for(lambda: set(eng.ws.modules) - before, 10, "no module")
+        (new,) = set(eng.ws.modules) - before
+        send(sid, p.WorkspaceMessage(2, p.CreateConnection(
+            InputId(m, 1), OutputId(new, 1))))
+        _wait_for(lambda: new in eng._patch.order, 60, "edit never adopted")
+        n = len(captured)
+        if not realtime:
+            for _ in range(2):
+                eng.tick_once()
+        _wait_for(lambda: len(captured) >= n + 2, 30, "stalled after swap")
+    finally:
+        eng.stop()
+    assert eng._patch is not first
+    assert first._fn._cache_size() == 1
+    assert eng._patch._fn._cache_size() == 1
+    assert eng.block_faults == {"lost": 0, "redispatched": 0, "dropped": 0}

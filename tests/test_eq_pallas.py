@@ -1,5 +1,7 @@
-"""Fused EqThree Pallas kernel (dsp/eq_pallas.py) vs the XLA chunked path:
-equivalence, state continuity, vmap batching."""
+"""EqThree's plain-XLA cascade (dsp/eq_three.py) at the block sizes that
+once took a Pallas kernel (>= 8,192 samples), against the sequential
+float64 oracle (tests/oracle.py): equivalence, state continuity across
+blocks, vmap batching, and blocks past one chunk-table size."""
 
 import numpy as np
 import pytest
@@ -7,24 +9,35 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mixlab_tpu.dsp import eq_pallas
+import oracle
 from mixlab_tpu.dsp.registry import get_def
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu.protocol import Decibel, EqThreeParams
 
 CFG = EngineConfig(sample_rate=48_000)
 EQ = get_def("EqThree")
-PARAMS = EqThreeParams(Decibel(4.0), Decibel(-2.0), Decibel(4.0))
+GAINS = (4.0, -2.0, 4.0)
+PARAMS = EqThreeParams(*(Decibel(g) for g in GAINS))
 AUX = EQ.prepare(PARAMS, CFG)
+# f32 device math (HIGHEST-precision Toeplitz matmuls) against the f64
+# reference on full-scale noise: a few f32 ulps of a signal of magnitude ~2
+TOL = 2e-5
 
 
-def _run(x, st, block, force):
-    orig = eq_pallas.PALLAS_THRESHOLD
-    eq_pallas.PALLAS_THRESHOLD = 0 if force == "pallas" else (1 << 60)
-    try:
-        return EQ.run_block(PARAMS, AUX, None, st, [x], CFG, block)
-    finally:
-        eq_pallas.PALLAS_THRESHOLD = orig
+def _run(x, st, block):
+    return EQ.run_block(PARAMS, AUX, None, st, [x], CFG, block)
+
+
+def _oracle_state(st):
+    poles = np.asarray(st["poles"], np.float64)
+    return {"lo": list(poles[:, 0]), "hi": list(poles[:, 1]),
+            "hist": list(np.asarray(st["hist"], np.float64))}
+
+
+def _oracle(x, st=None):
+    out, _ = oracle.eq_three(np.asarray(x), *GAINS, CFG.sample_rate,
+                             state=None if st is None else _oracle_state(st))
+    return out
 
 
 @pytest.mark.parametrize("n_ticks", [60, 16, 120])
@@ -35,78 +48,58 @@ def test_kernel_matches_xla_path(n_ticks):
     x = jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
     st = {"poles": jnp.asarray(rng.uniform(-0.1, 0.1, (4, 2)).astype(np.float32)),
           "hist": jnp.asarray(rng.uniform(-1, 1, 3).astype(np.float32))}
-    st_r, (o_r,), _ = _run(x, st, block, "xla")
-    st_k, (o_k,), _ = _run(x, st, block, "pallas")
-    assert np.abs(np.asarray(o_r) - np.asarray(o_k)).max() < 2e-5
-    assert np.abs(np.asarray(st_r["poles"]) - np.asarray(st_k["poles"])).max() < 2e-5
-    assert np.array_equal(np.asarray(st_r["hist"]), np.asarray(st_k["hist"]))
+    st_out, (out,), _ = _run(x, st, block)
+    assert np.abs(np.asarray(out) - _oracle(x, st)).max() < TOL
+    # carried state: the last input samples and the final poles
+    np.testing.assert_array_equal(np.asarray(st_out["hist"]),
+                                  np.asarray(x)[-3:])
+    ost = _oracle_state(st)
+    oracle.eq_three(np.asarray(x), *GAINS, CFG.sample_rate, state=ost)
+    want_poles = np.stack([ost["lo"], ost["hi"]], axis=1)
+    assert np.abs(np.asarray(st_out["poles"]) - want_poles).max() < TOL
 
 
 def test_kernel_state_continuity():
-    block = BlockSpec(30)
+    """Three consecutive 12,000-sample blocks carry state exactly like one
+    sequential run over all of them."""
+    block = BlockSpec(15)
     S = block.n_samples(CFG)
     rng = np.random.default_rng(7)
-    x1 = jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
-    x2 = jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
-    st0 = {"poles": jnp.zeros((4, 2), jnp.float32),
-           "hist": jnp.zeros(3, jnp.float32)}
-    stA, (oA,), _ = _run(x1, st0, block, "pallas")
-    stB, (oB,), _ = _run(x2, stA, block, "pallas")
-    stR, (oR,), _ = _run(jnp.concatenate([x1, x2]), st0, BlockSpec(60), "xla")
-    err = np.abs(np.concatenate([np.asarray(oA), np.asarray(oB)])
-                 - np.asarray(oR)).max()
-    assert err < 2e-5
+    xs = [jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
+          for _ in range(3)]
+    st = EQ.init_state(PARAMS, CFG)
+    outs = []
+    for x in xs:
+        st, (o,), _ = _run(x, st, block)
+        outs.append(np.asarray(o))
+    want = _oracle(np.concatenate([np.asarray(x) for x in xs]))
+    assert np.abs(np.concatenate(outs) - want).max() < TOL
 
 
 def test_kernel_under_vmap():
-    # config 3 vmaps the eq over stems/channels; the kernel must batch
+    # config 3 vmaps the eq over stems/channels
     block = BlockSpec(60)
     S = block.n_samples(CFG)
     rng = np.random.default_rng(3)
     xs = jnp.asarray(rng.uniform(-1, 1, (4, S)).astype(np.float32))
-    st0 = {"poles": jnp.zeros((4, 2), jnp.float32),
-           "hist": jnp.zeros(3, jnp.float32)}
+    st0 = EQ.init_state(PARAMS, CFG)
     sts = jax.tree.map(lambda a: jnp.broadcast_to(a, (4,) + a.shape), st0)
 
     def one(x, st):
-        st2, (out,), _ = EQ.run_block(PARAMS, AUX, None, st, [x], CFG, block)
+        st2, (out,), _ = _run(x, st, block)
         return out, st2
 
-    orig = eq_pallas.PALLAS_THRESHOLD
-    eq_pallas.PALLAS_THRESHOLD = 0
-    try:
-        outs, _ = jax.vmap(one)(xs, sts)
-    finally:
-        eq_pallas.PALLAS_THRESHOLD = orig
+    outs, _ = jax.vmap(one)(xs, sts)
     for i in range(4):
-        _, (ref,), _ = _run(xs[i], st0, block, "xla")
-        assert np.abs(np.asarray(outs[i]) - np.asarray(ref)).max() < 2e-5
+        assert np.abs(np.asarray(outs[i]) - _oracle(xs[i])).max() < TOL
 
 
-def test_kernel_split_large_blocks(monkeypatch):
-    """Blocks above MAX_KERNEL_S split into sequential launches carrying the
-    pole state exactly (single-launch OOMs scoped VMEM at ~1.5M samples on
-    chip; reproduced small by shrinking the cap)."""
-    import mixlab_tpu.dsp.eq_pallas as eqp
-    from mixlab_tpu.dsp.registry import get_def
-    from mixlab_tpu.protocol import Decibel, EqThreeParams
-
-    cfg = EngineConfig(sample_rate=48_000)
-    d = get_def("EqThree")
-    params = EqThreeParams(Decibel(4.0), Decibel(-2.0), Decibel(3.0))
-    aux = d.prepare(params, cfg)
-    S = 64_000
-    block = BlockSpec(S // cfg.samples_per_tick)
+def test_kernel_split_large_blocks():
+    """A block that is not a whole number of 256-sample Toeplitz chunks
+    (64,800) and a 384,000-sample flagship block both match the oracle."""
     rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
-
-    st_ref = d.init_state(params, cfg)
-    st_ref, (want,), _ = d.run_block(params, aux, None, st_ref, [x], cfg, block)
-
-    monkeypatch.setattr(eqp, "MAX_KERNEL_S", 16_384)  # forces 4 sub-launches
-    st_split = d.init_state(params, cfg)
-    st_split, (got,), _ = d.run_block(params, aux, None, st_split, [x], cfg, block)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(st_split["poles"]),
-                               np.asarray(st_ref["poles"]), rtol=2e-5, atol=2e-5)
+    for S in (64_800, 384_000):
+        block = BlockSpec(S // CFG.samples_per_tick)
+        x = jnp.asarray(rng.uniform(-1, 1, S).astype(np.float32))
+        _, (out,), _ = _run(x, EQ.init_state(PARAMS, CFG), block)
+        assert np.abs(np.asarray(out) - _oracle(x)).max() < TOL, S

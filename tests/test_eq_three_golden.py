@@ -2,7 +2,7 @@
 
 The reference ships a golden pair (``fixtures/module/eq_three/chronos.f32.raw``
 -> ``chronos-eq.f32.raw`` at gains +4/0/+4 dB, produced by its f64 DSP path —
-src/module/eq_three.rs:127-168).  The TPU kernel computes in f32 via
+src/module/eq_three.rs:127-168).  The device kernel computes in f32 via
 associative scans; tolerance here bounds the f32-vs-f64 and
 scan-vs-sequential error over the full 355k-sample fixture.
 """
@@ -48,7 +48,7 @@ def test_eq_three_golden_fixture(fixtures_dir):
 
 def test_eq_three_f64_oracle_matches_fixture_exactly(fixtures_dir):
     """Sanity: our understanding of the algorithm reproduces the fixture in
-    f64 (validates the oracle, and transitively the TPU kernel's spec)."""
+    f64 (validates the oracle, and transitively the device kernel's spec)."""
     import oracle
 
     x = load_f32_raw(fixtures_dir / "module/eq_three/chronos.f32.raw")

@@ -217,6 +217,56 @@ def test_agent_rejects_path_traversal_keys(tmp_path):
     asyncio.run(asyncio.wait_for(go(), 60))
 
 
+def test_agent_gives_each_worker_its_own_card(tmp_path, monkeypatch):
+    """On a GPU host every worker sees one card of its own
+    (CUDA_VISIBLE_DEVICES), and the agent starts no more workers than the
+    host has cards; a stopped worker's card is handed out again.  On the
+    CPU (tests) the card list is None and nothing changes."""
+    from mixlab_tpu.server import fleet
+
+    assert fleet.host_cards() is None  # conftest runs JAX on the CPU
+    assert HostAgent("cpu", tmp_path / "cpu").cards is None
+    started = []
+
+    class FakeProc:
+        pid = 1
+        returncode = None
+
+        def __init__(self, argv, env=None, **kw):
+            self.env = env
+            self.alive = True
+            started.append(self)
+
+        def poll(self):
+            return None if self.alive else 0
+
+        def terminate(self):
+            self.alive = False
+
+        def wait(self, timeout=None):
+            return 0
+
+    async def ok_http(url, *a, **kw):
+        return 200, b"ok"
+
+    monkeypatch.setattr(fleet.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(fleet, "http_call", ok_http)
+
+    async def go():
+        agent = HostAgent("gpu", tmp_path / "gpu", cards=["0", "1"])
+        await agent.spawn("a")
+        await agent.spawn("b")
+        assert [p.env["CUDA_VISIBLE_DEVICES"] for p in started] == ["0", "1"]
+        with pytest.raises(RuntimeError, match="cards"):
+            await agent.spawn("c")
+        assert len(started) == 2  # refused before starting a process
+        await agent.stop("a")
+        await agent.spawn("c")
+        assert started[-1].env["CUDA_VISIBLE_DEVICES"] == "0"
+
+    asyncio.run(asyncio.wait_for(go(), 30))
+
+
 def test_fleet_auth_rejects_unauthenticated(tmp_path):
     """With a shared secret configured, every agent/controller admin route
     rejects requests without the bearer token (constant-time compare)."""

@@ -438,7 +438,7 @@ def test_stream_output_pure_tier_publishes_30fps(monkeypatch):
     """VERDICT r4 #3: the zero-dep publish tier must reach the reference
     broadcast frame rate (30 fps, stream_output.rs:216).  Round-5 profile
     (tools/profile_pure_publish.py) found the old 15 fps cap was the scale
-    stage — the TPU-first dense resize at 4.5 fps on host CPU; the banded
+    stage — the dense-matmul resize at 4.5 fps on host CPU; the banded
     host twin (video/scale_host.py) measures ~200 fps and video moved to a
     dedicated encode thread.  This test publishes REAL 720p frames over
     RTMP loopback with the shim disabled for 3 s of realtime feed and

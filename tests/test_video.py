@@ -7,7 +7,7 @@ import pytest
 from mixlab_tpu.engine.config import EngineConfig
 from mixlab_tpu.protocol import VideoMixerParams
 from mixlab_tpu.utils.mtime import MediaDuration
-from mixlab_tpu.video.blend import crossfade_pallas, crossfade_xla
+from mixlab_tpu.video.blend import crossfade_picture, crossfade_xla
 from mixlab_tpu.video.colorspace import rgb_to_yuv420, yuv420_to_rgb
 from mixlab_tpu.video.engine import VideoMixerState, video_mixer_tick
 from mixlab_tpu.video.frame import Picture, PictureSettings, VideoFrame, unify_picture_settings
@@ -39,11 +39,19 @@ def test_crossfade_xla_exact(fade):
 
 
 def test_crossfade_pallas_matches_xla():
+    """The video mixer's jitted all-planes crossfade (plain XLA) is
+    bit-exact against the integer formula on odd-sized yuv420 planes."""
     rng = np.random.default_rng(6)
-    a = rng.integers(0, 256, (36, 100), dtype=np.uint8)
-    b = rng.integers(0, 256, (36, 100), dtype=np.uint8)
-    got = np.asarray(crossfade_pallas(a, b, 171))
-    np.testing.assert_array_equal(got, blend_oracle(a, b, 171))
+    shapes = {"y": (36, 100), "u": (18, 50), "v": (18, 50)}
+    a = {k: jnp.asarray(rng.integers(0, 256, s, dtype=np.uint8))
+         for k, s in shapes.items()}
+    b = {k: jnp.asarray(rng.integers(0, 256, s, dtype=np.uint8))
+         for k, s in shapes.items()}
+    got = crossfade_picture(a, b, 171)
+    for k in shapes:
+        np.testing.assert_array_equal(
+            np.asarray(got[k]),
+            blend_oracle(np.asarray(a[k]), np.asarray(b[k]), 171))
 
 
 def test_unify_picture_settings():
@@ -197,27 +205,31 @@ def test_polyphase_upscale_matches_dense_matmul():
         assert diff.max() <= 1, (out_h, out_w, diff.max())  # f32 rounding ties
 
 
-def test_resize_pallas_matches_dense():
-    """Polyphase Pallas resize (kept as a documented experiment) matches
-    the shipping dense-matmul resize within 1 LSB (interpret mode)."""
-    import numpy as np
-    import jax.numpy as jnp
+def test_resize_route_choice():
+    """One declared route, f32; "auto" takes it, every method stays within
+    its LSB budget of f64, and an unknown method is refused."""
+    from mixlab_tpu.video import scale as sc
 
-    from mixlab_tpu.video.resize_pallas import can_resize_pallas, resize_plane_pallas
-    from mixlab_tpu.video.scale import resize_plane
-
+    assert sc.RESIZE_ROUTE == "f32"
     rng = np.random.default_rng(0)
-    for (h1, w1, h2, w2) in [(72, 128, 108, 192), (54, 96, 108, 192), (64, 96, 48, 64)]:
-        assert can_resize_pallas(h1, w1, h2, w2)
-        x = jnp.asarray(rng.integers(0, 256, (h1, w1), dtype=np.uint8))
-        a = np.asarray(resize_plane(x, h2, w2)).astype(int)
-        b = np.asarray(resize_plane_pallas(x, h2, w2)).astype(int)
-        assert np.abs(a - b).max() <= 1
-    assert not can_resize_pallas(1080, 1920, 560, 352)  # falls back to dense
+    plane = jnp.asarray(rng.integers(0, 256, (72, 128), dtype=np.uint8))
+    want = np.clip(np.round(
+        sc.resize_matrix(72, 108).astype(np.float64)
+        @ np.asarray(plane, np.float64)
+        @ sc.resize_matrix(128, 192).astype(np.float64).T), 0, 255)
+    auto = np.asarray(sc.resize_plane(plane, 108, 192))
+    routed = np.asarray(sc.resize_plane(plane, 108, 192,
+                                        method=sc.RESIZE_ROUTE))
+    np.testing.assert_array_equal(auto, routed)
+    for method, lsb in (("f32", 1), ("int8", 3)):
+        got = np.asarray(sc.resize_plane(plane, 108, 192, method=method))
+        assert np.abs(got - want).max() <= lsb, method
+    with pytest.raises(ValueError):
+        sc.resize_plane(plane, 108, 192, method="bf16")
 
 
 def test_resize_int8_accuracy():
-    """int8 MXU resize (2x s8 rate on TPU) stays within ~1 LSB of the f64
+    """int8 resize (s8 x s8 -> s32 matmuls) stays within ~1 LSB of the f64
     reference: per-row-scaled int8 weights, exactly-centered input, and a
     range-scaled (never clipped) intermediate between the separable passes."""
     import numpy as np
@@ -288,7 +300,7 @@ def test_fused_resize_crossfade_roll_matches_sequential():
         assert err[~overshoot].max() <= 2, (fade, err[~overshoot].max())
         # overshoot pixels are bounded by the bicubic overshoot envelope
         assert err.max() <= 48, (fade, err.max())
-        # and the int8 MXU tier stays within its own documented envelope
+        # and the int8 tier stays within its own documented envelope
         fused8 = np.asarray(resize_crossfade_roll(
             plane, 108, 192, fade, method="int8"))
         err8 = np.abs(seq.astype(int) - fused8.astype(int))

@@ -1,5 +1,5 @@
 """Pure Vorbis decoder: golden decode vs SDL_mixer, transform identities,
-window/lapping perfect reconstruction, TPU IMDCT path.
+window/lapping perfect reconstruction, device IMDCT path.
 
 Reference bar: the reference ingests Ogg/Vorbis with a pure-Rust decoder
 (codec/src/ogg.rs:55-130, lewton)."""

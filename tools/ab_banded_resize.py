@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Interleaved A/B: dense vs block-banded int8 resize matmuls on chip.
 
-The dense s8 resize matrix is 99% zeros; the round-2 roofline showed VPU
-polyphase formulations lose to the dense MXU matmul anyway.  The banded
-path (video/scale.py _banded_blocks_i8) keeps the MXU but contracts each
+The dense s8 resize matrix is 99% zeros.  The banded
+path (video/scale.py _banded_blocks_i8) keeps matmuls but contracts each
 output block only against its input window — 3.4x fewer MACs at config5's
 2x upscale — and is bit-identical by construction.  This measures whether
 fewer MACs translate to wall time at config5's geometry.

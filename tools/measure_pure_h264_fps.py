@@ -11,8 +11,7 @@ semantics) via the libavcodec shim, then times each pure-tier decoder:
              full-intra x264 streams raise H264Unsupported -> scalar)
   scalar   — the per-MB Python oracle (_SliceDecoder)
 
-Host-CPU measurement (the decode tier never touches the TPU).  Results go
-to BENCH_NOTES.md.
+Host-CPU measurement (the decode tier never touches the device).
 """
 
 from __future__ import annotations

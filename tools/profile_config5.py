@@ -107,7 +107,10 @@ def main():
             float(ca.get("bytes accessed", 0.0)) / FRAMES,
         )
 
-    PEAK_FLOPS, PEAK_HBM = 197e12, 819e9  # v5e bf16 MXU, HBM B/s
+    from bench import PEAKS
+
+    peaks = PEAKS[jax.devices()[0].device_kind]  # KeyError: kind unlisted
+    PEAK_FLOPS, PEAK_HBM = peaks["bf16_flops"], peaks["hbm_bytes_s"]
 
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     stages = [
@@ -139,7 +142,7 @@ def main():
         fl, by = costs[name]
         dt, df, db = cur - pt, fl - pf, by - pb
         roof_f, roof_b = df / PEAK_FLOPS * 1e6, db / PEAK_HBM * 1e6
-        bound = "MXU" if roof_f > roof_b else "HBM"
+        bound = "flops" if roof_f > roof_b else "HBM"
         print(f"  {name:14s} {dt:8.2f} {df/1e6:9.1f} {db/1e6:8.2f} "
               f"{max(roof_f, roof_b):12.2f} {bound:>6s}")
         pt, pf, pb = cur, fl, by

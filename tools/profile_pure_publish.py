@@ -47,7 +47,7 @@ def main():
     n_frames = max(int(seconds * 30), 30)
     frames = [frame(i) for i in range(8)]
 
-    # stage 1a: the TPU-first dense scaler forced through host jax (what
+    # stage 1a: the dense-matmul scaler forced through host jax (what
     # the pure tier used before round 5 — the measured limiter)
     t0 = time.perf_counter()
     for i in range(min(n_frames, 15)):
